@@ -2,9 +2,9 @@
 
 ``build_dataset_train`` / ``build_dataset_test`` reproduce the reference
 surface: pick the list file by train_type, load-or-compute the inform stats
-pickle, return loaders. TPU-native twist: the returned train "loader" yields
-raw uint8 batches; augmentation happens on device via the ``augment`` fn
-also returned (wired into the trainer's step pipeline).
+pickle, return loaders. Departure: the returned train "loader" yields raw
+uint8 batches; augmentation happens on device via the ``augment`` fn also
+returned (wired into the trainer's step pipeline).
 
 When the dataset root has no list files (this build environment ships no
 Cityscapes/CamVid), builders fall back to the synthetic dataset so every CLI
@@ -107,8 +107,11 @@ def build_dataset_test(dataset: str, num_workers: int = 4,
     """
     spec = get_spec(dataset)
     split = "test" if none_gt else "val"
+    # synthetic val data uses the seed build_dataset_train gives it, so a
+    # checkpoint evaluated here scores on the images training validated on
     ds, real = _make_dataset(root, dataset, split, spec, synthetic_len,
-                             seed=2, synthetic_hw=synthetic_hw)
+                             seed=2 if none_gt else 1,
+                             synthetic_hw=synthetic_hw)
     if isinstance(ds, SyntheticDataset) and none_gt:
         ds.with_labels = False
 

@@ -2,12 +2,12 @@
 
 Reference: ``dataset/cityscapes.py`` / ``dataset/camvid.py`` [R] — torch
 Datasets doing cv2 decode + full CPU-side augmentation in forked DataLoader
-workers. TPU-native split of responsibilities:
+workers. Split of responsibilities:
 
 - host (this file): manifest parsing, image decode (cv2 BGR to match the
   reference's mean/std conventions), static resize for val — cheap, IO-bound;
 - device (augment.py): scale-jitter/crop/mirror/normalize as part of the
-  jitted input program, feeding HBM-resident batches.
+  jitted input program, feeding device-resident batches.
 
 Dataset contracts (match the reference):
 - Cityscapes: 19 classes, ignore_label 255, source 1024x2048, BGR uint8,
@@ -140,7 +140,7 @@ class ManifestDataset:
                     f"packed label {lab_path} has shape {label.shape}; "
                     "expected (H, W) from tools/pack_dataset.py")
             # pack_dataset guarantees uint8; cast defensively — cv2.resize
-            # rejects int32/int64 input (ADVICE r4)
+            # rejects int32/int64 input
             label = label.astype(np.uint8, copy=False)
         if self.resize_hw is not None:
             import cv2
@@ -150,7 +150,7 @@ class ManifestDataset:
                                    interpolation=cv2.INTER_LINEAR)
             # key the label resize on the label's own shape — a label
             # packed at a different resolution than its image must still
-            # land on resize_hw (ADVICE r4)
+            # land on resize_hw
             if label is not None and tuple(label.shape[:2]) != (h, w):
                 label = cv2.resize(label, (w, h),
                                    interpolation=cv2.INTER_NEAREST)

@@ -1,7 +1,7 @@
 """Batch loading + device prefetch.
 
 Reference: ``torch.utils.data.DataLoader(num_workers, pin_memory,
-drop_last)`` [R: builders/dataset_builder.py]. TPU-native equivalent: a
+drop_last)`` [R: builders/dataset_builder.py]. Equivalent here: a
 thread-pooled host loader that stacks numpy batches and a double-buffered
 device feeder — batch N+1 is decoded and transferred while batch N computes,
 so the accelerator never stalls on host IO (SURVEY.md §2.5 input-pipeline

@@ -8,6 +8,8 @@ Cityscapes/CamVid definitions.
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional
 
 import numpy as np
@@ -61,6 +63,27 @@ def palette_for(dataset: str) -> np.ndarray:
         else CAMVID_PALETTE
 
 
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write an 8-bit grey (H, W) or RGB (H, W, 3) PNG: one IDAT of
+    zlib-compressed filter-0 scanlines (PNG spec, ISO/IEC 15948)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    color = {2: 0, 3: 2}[img.ndim]      # 0 = greyscale, 2 = truecolour
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           img.reshape(h, -1)], axis=1)
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
 def save_predict(pred: np.ndarray, gt: Optional[np.ndarray], name: str,
                  dataset: str, save_dir: str, *, output_grey: bool = False,
                  output_color: bool = True, gt_color: bool = False) -> None:
@@ -70,17 +93,15 @@ def save_predict(pred: np.ndarray, gt: Optional[np.ndarray], name: str,
       trainID->labelID so the file is server-submittable.
     - output_color: palette-colorized PNG.
     """
-    from PIL import Image
     os.makedirs(save_dir, exist_ok=True)
     base = os.path.splitext(os.path.basename(name))[0]
     if output_grey:
         grey = trainid_to_labelid(pred) if dataset.lower().startswith("city") \
             else pred.astype(np.uint8)
-        Image.fromarray(grey).save(os.path.join(save_dir, base + ".png"))
+        write_png(os.path.join(save_dir, base + ".png"), grey)
     if output_color:
         rgb = colorize_mask(pred, palette_for(dataset))
-        Image.fromarray(rgb).save(
-            os.path.join(save_dir, base + "_color.png"))
+        write_png(os.path.join(save_dir, base + "_color.png"), rgb)
     if gt_color and gt is not None:
         rgb = colorize_mask(gt, palette_for(dataset))
-        Image.fromarray(rgb).save(os.path.join(save_dir, base + "_gt.png"))
+        write_png(os.path.join(save_dir, base + "_gt.png"), rgb)

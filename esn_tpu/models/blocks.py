@@ -1,8 +1,8 @@
 """Shared block library — the ~12 families the 17-model zoo decomposes into
 (SURVEY.md §7 design stance). The reference repeats these per file
 [R: model/*.py]; here models are thin compositions over this module, which
-is also where per-family Pallas fusion lands (ops/pallas/) without touching
-any model code.
+is also where a per-family lowering change lands without touching any model
+code.
 
 All blocks are NHWC; convs feeding BN carry no bias.
 """
@@ -60,22 +60,22 @@ class ConvBNAct(nn.Module):
         import os
         conv = self.conv
         mode = os.environ.get("ESN_TPU_S2D_CONV", "auto")
-        # TRAIN-only by default: the folded stem measured +7.6% on the
-        # contextnet b8 train step but -36% on b128 INFERENCE (1294.6 ->
-        # 824.7 img/s, r5 A/B) — the unfold boundary prices differently
-        # under the inference-mode fusions. "1" forces both modes.
+        # TRAIN-only by default: before the GPU port the folded stem sped up
+        # the contextnet train step but slowed b128 inference — the unfold
+        # boundary prices differently under the inference-mode fusions (not
+        # measured on the H100). "1" forces both modes.
         engage = (mode == "1"
                   or (mode not in ("0", "1") and scope.train
                       and getattr(self, "fold_stem", False)))
         if (engage and not scope.is_init and conv.groups == 1
                 and conv.in_ch <= 4 and self.bn is not None):
-            # r5 stem fast path: the RGB stem conv runs lane-full
-            # W-folded (ops/s2d.w_fold_stem_conv — stem fwd measured
-            # 5.38 -> 1.74 ms @ 88.8% MXU on fastscnn b8 full-res) and
-            # BN + activation stay IN folded space (folded_apply), so
-            # the one unfold happens after the whole stem unit — the
-            # fold boundary in the middle measured +5.4 ms of backward
-            # add_any relayouts (audit_dx r5).
+            # stem fast path: the RGB stem conv runs W-folded
+            # (ops/s2d.w_fold_stem_conv: 3 input channels would leave
+            # the channel axis mostly padding) and BN + activation stay
+            # IN folded space (folded_apply), so the one unfold happens
+            # after the whole stem unit — a fold boundary in the middle
+            # adds backward relayouts (tuned before the GPU port; not
+            # measured on the H100).
             from ..ops import s2d as S
             from ..ops.folding import unfold_w
             p2 = lambda v: (v, v) if isinstance(v, int) else tuple(v)
@@ -105,7 +105,7 @@ class ConvBNAct(nn.Module):
         sum_i conv(piece_i, W[:, :, lo_i:hi_i, :])`` — the input-channel
         split of the kernel. Each piece keeps its own (lane-friendly)
         layout and the misaligned concat never exists. The piece partial
-        sums accumulate in f32 and round once, like the fused conv's MXU
+        sums accumulate in f32 and round once, like the fused conv's
         accumulator. groups=1 only."""
         from ..ops.convolution import conv2d
         assert self.conv.groups == 1
@@ -113,7 +113,7 @@ class ConvBNAct(nn.Module):
         acc, lo = None, 0
         for p in pieces:
             hi = lo + p.shape[-1]
-            # each piece conv runs in the compute dtype (bf16 in, f32 MXU
+            # each piece conv runs in the compute dtype (bf16 in, f32
             # accumulate); partial sums add in f32 and round once, so the
             # only drift vs the fused conv is one bf16 round per piece
             term = conv2d(p, w[:, :, lo:hi, :],
@@ -173,61 +173,17 @@ class DWConvBNAct(nn.Module):
 
 class DSConv(nn.Module):
     """Depthwise-separable conv: dw 3x3 + pw 1x1, each BN+ReLU
-    (reference _DSConv in FastSCNN/ContextNet [R]).
-
-    At eval time on TPU the whole block collapses into the single-pass
-    Pallas kernel :func:`esn_tpu.ops.pallas.fused_dsconv` (BN folded into
-    per-channel affines) — one HBM read, one HBM write, intermediate stays
-    in VMEM. Training and non-TPU backends use the plain composed path.
-    """
+    (reference _DSConv in FastSCNN/ContextNet [R]). XLA fuses each BN and
+    activation into its conv's epilogue."""
 
     def __init__(self, in_ch: int, out_ch: int, *, stride: IntOr2 = 1,
                  kernel: IntOr2 = 3, dilation: IntOr2 = 1, act: str = "relu"):
-        self.in_ch, self.out_ch = in_ch, out_ch
-        self.stride_, self.kernel_, self.dilation_ = stride, kernel, dilation
-        self.act_ = act
         self.dw = ConvBNAct(in_ch, in_ch, kernel, stride=stride,
                             dilation=dilation, groups=in_ch, act=act)
         self.pw = ConvBNAct(in_ch, out_ch, 1, act=act)
 
-    def _fusible(self, scope, x) -> bool:
-        from ..ops import pallas as PK
-        return (not scope.is_init and not scope.train and x.ndim == 4
-                and self.kernel_ in (3, (3, 3))
-                and self.dilation_ in (1, (1, 1))
-                and self.stride_ in (1, 2, (1, 1), (2, 2))
-                and self.act_ in ("relu", "relu6", "none")
-                and PK.enabled())
-
     def __call__(self, scope, x):
-        if self._fusible(scope, x):
-            return self._fused(scope, x)
         return scope("pw", self.pw, scope("dw", self.dw, x))
-
-    def _fused(self, scope, x):
-        from ..ops import pallas as PK
-        never = lambda *a: (_ for _ in ()).throw(AssertionError("apply-only"))
-        ci, co = self.in_ch, self.out_ch
-
-        def bn_affine(s, c, eps):
-            gamma = s.param("scale", never, (c,))
-            beta = s.param("bias", never, (c,))
-            mean = s.stat("mean", never, (c,))
-            var = s.stat("var", never, (c,))
-            return PK.fold_bn(mean, var, gamma, beta, eps)
-
-        dws = scope.child("dw")
-        dwk = dws.child("conv").param("kernel", never, (3, 3, 1, ci))
-        a1, b1 = bn_affine(dws.child("bn"), ci, self.dw.bn.eps)
-        pws = scope.child("pw")
-        pwk = pws.child("conv").param("kernel", never, (1, 1, ci, co))
-        a2, b2 = bn_affine(pws.child("bn"), co, self.pw.bn.eps)
-
-        stride = self.stride_ if isinstance(self.stride_, int) \
-            else self.stride_[0]
-        return PK.fused_dsconv(
-            x, dwk.reshape(3, 3, ci), a1, b1, pwk.reshape(ci, co), a2, b2,
-            stride=stride, act1=self.act_, act2=self.act_)
 
 
 class InvertedResidual(nn.Module):
@@ -333,8 +289,8 @@ class DownsamplerConcat(nn.Module):
                                    (1, 1), 1)):
             # space-to-depth stem lowering (ops/s2d.py): one relayout
             # shared by the dense stride-1 conv AND the phase-max pool —
-            # kills the 3->128-lane full-res padding in the weight-grad
-            # (ERFNet full-res train b4 12.6 -> 13.7 img/s)
+            # kills the 3-channel full-res padding in the weight-grad
+            # (tuned before the GPU port; not measured on the H100)
             xs = S.space_to_depth(x, 2, 2)
             y = S.s2d_conv_on_folded(xs, w, stride=(2, 2), padding=(1, 1),
                                      bias=b)
@@ -440,7 +396,8 @@ class NonBottleneck1d(nn.Module):
     def _folded(self, scope, x, f):
         """Lane-folded execution (ops.folding): same parameters, same math,
         W packed into channels so the 16/32-channel factorized convs run
-        128-lane dense instead of 7/8 padding waste. Engaged for ch <= 64
+        on a dense channel axis (a layout tuned before the GPU port; not
+        measured on the H100). Engaged for ch <= 64
         outside init; exact vs the plain path (tested)."""
         pad = (self.k - 1) // 2
         d = self.dilation
@@ -485,9 +442,7 @@ def subpixel_predict_tail(layer, scope, y, *, argmax_tail="resize"):
 
     argmax_tail defaults to "resize" (= plain jnp.argmax): the phase conv
     is a CHEAP producer, so the variadic-reduce refusion costs nothing,
-    while the packed-key form pushes large-batch graphs over the TPU
-    compile helper's ceiling (ESPNet b64: naive 116.7 img/s, packed fails
-    to compile and falls back to b32 at 90.7)."""
+    and the packed-key form only makes the graph larger."""
     from ..nn.layers import _pair
     from ..ops import classify as CL
     from ..ops import convolution as C

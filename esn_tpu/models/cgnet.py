@@ -1,4 +1,4 @@
-"""CGNet M3N21 (Wu et al. 2018, arXiv 1811.08201) — NHWC, TPU-native.
+"""CGNet M3N21 (Wu et al. 2018, arXiv 1811.08201) — NHWC.
 
 Reference counterpart: ``model/CGNet.py`` [R] (ConvBNPReLU, ChannelWiseConv,
 ChannelWiseDilatedConv, FGlo, ContextGuidedBlock, ContextGuidedBlock_Down,
@@ -46,26 +46,15 @@ class CGBlock(nn.Module):
 
     def __call__(self, scope, x):
         f = 1
-        # ESN_TPU_FOLD_DW default OFF: the shift-FMA folded depthwise
-        # path measured SLOWER at inference than XLA's native depthwise
-        # lowering despite full lane density (cgnet 83.9 -> 52.8, dabnet
-        # 231.1 -> 183.7, fpenet 84.3 -> 57.0, espnetv2 68.5 -> 37.9
-        # img/s b-best 2048x1024 bf16) — the 9-tap re-read pattern costs
-        # more HBM traffic than the lane padding it removes. Kept as an
-        # exact, tested, opt-in alternative.
+        # ESN_TPU_FOLD_DW default OFF: before the GPU port the shift-FMA
+        # folded depthwise path was slower at inference than XLA's native
+        # depthwise lowering — the 9-tap re-read pattern costs more
+        # memory traffic than the padding it removes (not measured on the
+        # H100). Kept as an exact, tested, opt-in alternative.
         if os.environ.get("ESN_TPU_FOLD_DW", "0") == "1" and not scope.is_init:
             f = folding.fold_factor(self.ch // 2, x.shape[2])
         if f > 1:
             return self._folded(scope, x, f)
-        # ESN_TPU_FUSED_CG default OFF: the fused Pallas CG-block kernel
-        # won at b16 full-res (its landing measurement) but LOSES at b64 —
-        # 129.7 vs 140.1 img/s plain (2048x1024 bf16, scanned stages) —
-        # XLA's own fusion over the scan body wins once the batch
-        # amortizes layout overheads. Kept as the exact, parity-tested
-        # opt-in it is; the b16 case is moot since b64 now compiles.
-        if (not scope.is_init and not scope.train
-                and os.environ.get("ESN_TPU_FUSED_CG", "0") == "1"):
-            return self._fused_eval(scope, x)
         y = scope("reduce", self.reduce, x)
         loc = scope("loc", self.loc, y)
         sur = scope("sur", self.sur, y)
@@ -73,36 +62,11 @@ class CGBlock(nn.Module):
         y = scope("glo", self.glo, y)
         return x + y
 
-    def _fused_eval(self, scope, x):
-        """Eval path through the fused Pallas CG-block kernel
-        (ops/pallas/cgblock.py): reduce 1x1 + dual depthwise context +
-        join BN/PReLU in ONE HBM pass, FGlo gate + residual as one fused
-        XLA elementwise. Exact at eval BN semantics (parity-tested);
-        dispatches to the identical-math XLA reference off-TPU or when
-        ESN_TPU_PALLAS_CG=0."""
-        from ..ops.pallas.cgblock import fused_cgblock_pre
-        rs = scope.child("reduce")
-        w1, _ = self.reduce.conv.params(rs.child("conv"))
-        a1, b1 = self.reduce.bn.eval_affine(rs.child("bn"))
-        p1 = self.reduce.act.slopes(rs.child("act"))
-        wl, _ = self.loc.params(scope.child("loc"))
-        ws, _ = self.sur.params(scope.child("sur"))
-        js = scope.child("join")
-        a2, b2 = self.join.bn.eval_affine(js.child("bn"))
-        p2 = self.join.act.slopes(js.child("act"))
-        j, sums = fused_cgblock_pre(
-            x, w1[0, 0], a1, b1, p1, wl[:, :, 0], ws[:, :, 0], a2, b2, p2,
-            d=self.dilation_)
-        area = x.shape[1] * x.shape[2]
-        mean = (sums / area).astype(x.dtype)
-        g = self.glo.gate(scope.child("glo"), mean)
-        return x + j * g[:, None, None, :]
-
     def _folded(self, scope, x, f):
         """Lane-folded execution (ops.folding): same parameters, same math.
         The block's bottleneck is its dual depthwise 3x3 at ch/2 = 32-64
         channels (reference ChannelWiseConv / ChannelWiseDilatedConv [R:
-        model/CGNet.py]) — 50-75% lane-padding waste on the VPU. W folds
+        model/CGNet.py]) — 50-75% channel padding. W folds
         into channels once per block (a free NHWC reshape), the depthwise
         pair runs at full density (folded_depthwise_conv), and BN / PReLU /
         FGlo apply fold-aware. Exact vs the plain path (tested)."""
@@ -153,9 +117,8 @@ class CGBlockDown(nn.Module):
         if isinstance(x, (list, tuple)):
             # virtual-concat input (CGNet's raw-input injections): the
             # stride-2 conv splits its kernel over the pieces instead of
-            # materializing a lane-hostile 35/131-ch concat — measured
-            # 195 -> ~126 ms for the whole model at b16 2048x1024
-            # (tools/bench_cgnet_noinj.py isolates the layout cost)
+            # materializing a misaligned 35/131-ch concat (tuned before the GPU
+            # port; not measured on the H100)
             y = self.conv.pieces_apply(scope.child("conv"), x)
         else:
             y = scope("conv", self.conv, x)
@@ -182,12 +145,9 @@ class CGNet(nn.Module):
 
         # identical repeated blocks run as ONE lax.scan body (nn.ScanChain):
         # graph size becomes depth-independent, which is what got CGNet's
-        # b32/b64 full-res TRAINING graphs under the TPU compile-helper
-        # ceiling. Inference unrolls (eval_unroll): with the folded stem +
-        # virtual-concat injections the unrolled eval graph compiles again
-        # and XLA's cross-block fusion beats the scan carry — 139.9
-        # (scanned b64) -> 145.5 (unrolled b64) -> 176.2 img/s (unrolled
-        # b128) at 2048x1024 bf16.
+        # large-batch full-res TRAINING graphs small. Inference unrolls
+        # (eval_unroll): XLA's cross-block fusion beat the scan carry before
+        # the GPU port (not measured on the H100).
         self.down2 = CGBlockDown(32 + in_ch, 64, dilation=2, reduction=8)
         self.stage2 = nn.ScanChain(CGBlock(64, 2, 8), m - 1, eval_unroll=True)
         self.b2 = BNAct(128 + in_ch, act="prelu", bn_eps=BN_EPS)
@@ -201,13 +161,12 @@ class CGNet(nn.Module):
 
     def _stem(self, scope, x):
         """Lane-folded stem: conv1 consumes the s2d(2,8)-relayout of the
-        full-res RGB input (a shuffle-free reshape — ops/s2d.py
-        space_to_depth) and emits its 1/2-res 32-ch output W-folded f=4
-        (128 dense lanes); c2/c3 + BN/PReLU run entirely folded; one
-        unfold (free reshape) at the end. Exact (general_folded_conv
-        parity-tested); plain stem 28.4 ms -> measured below at b16
-        2048x1024 bf16. Falls back to the unrolled Sequential when shapes
-        don't divide or during init."""
+        full-res RGB input (a shuffle-free reshape — ops/s2d.py space_to_depth)
+        and emits its 1/2-res 32-ch output W-folded f=4 (128 dense lanes);
+        c2/c3 + BN/PReLU run entirely folded; one unfold (free reshape) at the
+        end. Exact (general_folded_conv parity-tested); tuned before the GPU
+        port, not measured on the H100. Falls back to the unrolled Sequential
+        when shapes don't divide or during init."""
         c1, c2, c3 = self.stem.layers
         hw_ok = x.shape[1] % 2 == 0 and x.shape[2] % 16 == 0
         if scope.is_init or not hw_ok \
@@ -241,7 +200,7 @@ class CGNet(nn.Module):
         # raw-input injections ride as VIRTUAL concats (lists of pieces):
         # BN/PReLU slice their per-channel params, the downsampler conv
         # splits its kernel — exact, and the 35/131-ch lane-misaligned
-        # tensors never exist (+69 ms at b16 full-res if they do)
+        # tensors never exist
         p1 = self.b1.pieces_apply(scope.child("b1"), [s1, i1])
         d2 = scope("down2", self.down2, p1)                    # 1/4, 64
         s2 = scope("stage2", self.stage2, d2)

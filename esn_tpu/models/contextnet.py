@@ -1,4 +1,4 @@
-"""ContextNet (Poudel et al. 2018, arXiv 1805.04554) — NHWC, TPU-native.
+"""ContextNet (Poudel et al. 2018, arXiv 1805.04554) — NHWC.
 
 Reference counterpart: ``model/ContextNet.py`` [R] (Shallow_net, DeepNet,
 FeatureFusionModule). Two-branch design for 2048x1024: a full-res shallow
@@ -21,10 +21,9 @@ class ShallowNet(nn.Module):
 
     def __init__(self, in_ch=3):
         self.conv = ConvBNAct(in_ch, 32, 3, stride=2, act="relu")
-        # lane-full W-folded stem (ops/s2d.w_fold_stem_conv): measured
-        # +7.6% on the b8 full-res CE train step (109.7 -> 118.0 img/s,
-        # r5 A/B); the same lowering measured NEGATIVE on fastscnn/
-        # dabnet/espnet_c, so it is a per-model opt-in
+        # W-folded stem (ops/s2d.w_fold_stem_conv): before the GPU port it sped
+        # up this model's full-res train step and slowed fastscnn/dabnet/
+        # espnet_c, so it is a per-model opt-in (not measured on the H100)
         self.conv.fold_stem = True
         self.ds1 = DSConv(32, 64, stride=2)
         self.ds2 = DSConv(64, 128, stride=2)

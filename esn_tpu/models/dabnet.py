@@ -1,4 +1,4 @@
-"""DABNet (Li & Kim 2019, arXiv 1907.11357) — NHWC, TPU-native.
+"""DABNet (Li & Kim 2019, arXiv 1907.11357) — NHWC.
 
 Reference counterpart: ``model/DABNet.py`` [R] (Conv, BNPReLU, DABModule,
 DownSamplingBlock, InputInjection). ~0.76M params, paper 70.1 mIoU.
@@ -48,13 +48,11 @@ class DABModule(nn.Module):
 
     def __call__(self, scope, x):
         f = 1
-        # ESN_TPU_FOLD_DW default OFF: the shift-FMA folded depthwise
-        # path measured SLOWER at inference than XLA's native depthwise
-        # lowering despite full lane density (cgnet 83.9 -> 52.8, dabnet
-        # 231.1 -> 183.7, fpenet 84.3 -> 57.0, espnetv2 68.5 -> 37.9
-        # img/s b-best 2048x1024 bf16) — the 9-tap re-read pattern costs
-        # more HBM traffic than the lane padding it removes. Kept as an
-        # exact, tested, opt-in alternative.
+        # ESN_TPU_FOLD_DW default OFF: before the GPU port the shift-FMA
+        # folded depthwise path was slower at inference than XLA's native
+        # depthwise lowering — the 9-tap re-read pattern costs more
+        # memory traffic than the padding it removes (not measured on the
+        # H100). Kept as an exact, tested, opt-in alternative.
         if os.environ.get("ESN_TPU_FOLD_DW", "0") == "1" and not scope.is_init:
             f = folding.fold_factor(self.ch // 2, x.shape[2])
         if f > 1:
@@ -154,7 +152,7 @@ class DABNet(nn.Module):
 
         self.down1 = DownSamplingBlock(32 + in_ch, 64)
         # repeated DAB stacks run as lax.scan bodies (nn.ScanChain): graph
-        # size becomes repeat-independent (compile-helper headroom). The
+        # size becomes repeat-independent (shorter compiles). The
         # (4,4,8,8,16,16) stage is three scanned pairs — dilation is static
         # inside each body.
         self.block1 = nn.ScanChain(DABModule(64, 2), 3, eval_unroll=True)

@@ -1,4 +1,4 @@
-"""EDANet (Lo et al. 2018, arXiv 1809.06323) — NHWC, TPU-native.
+"""EDANet (Lo et al. 2018, arXiv 1809.06323) — NHWC.
 
 Reference counterpart: ``model/EDANet.py`` [R] (DownsamplingBlock, EDAModule,
 EDABlock). ~0.68M params, paper 67.3 mIoU.

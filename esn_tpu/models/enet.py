@@ -1,4 +1,4 @@
-"""ENet (Paszke et al., arXiv 1606.02147) — TPU-native NHWC implementation.
+"""ENet (Paszke et al., arXiv 1606.02147) — NHWC implementation.
 
 Reference counterpart: ``model/ENet.py`` [R] (InitialBlock, RegularBottleneck,
 DownsamplingBottleneck, UpsamplingBottleneck). Re-designed here around the
@@ -105,15 +105,15 @@ class RegularBottleneck(nn.Module):
         return scope("out_act", self.out_act, x + y)
 
     def _folded(self, scope, x, f):
-        """Lane-folded execution (ops.folding, slot-major): one fold, the
-        whole reduce/core/expand/residual chain dense, one unfold. Exact vs
-        the plain path (tested) but OFF by default: measured a net LOSS on
-        ENet (112.7 vs 125.3 img/s b32 2048x1024) — the bottleneck's mid
-        width is ch/4, so even folded the core runs at 32/128 lanes, the
-        1x1 reduce/expand (the FLOPs) were already half-dense unfolded, and
-        each block pays fold/unfold relayouts. Folding pays off when a
-        block is narrow END-TO-END (NonBottleneck1d: +3.5x), not when only
-        its waist is narrow. Kept behind ESN_TPU_FOLD_ENET=1."""
+        """Lane-folded execution (ops.folding, slot-major): one fold, the whole
+        reduce/core/expand/residual chain dense, one unfold. Exact vs the plain
+        path (tested) but OFF by default: it lost before the GPU port (not
+        measured on the H100) — the bottleneck's mid width is ch/4, so even
+        folded the core runs at 32/128 lanes, the 1x1 reduce/expand (the FLOPs)
+        were already half-dense unfolded, and each block pays fold/unfold
+        relayouts. Folding pays off when a block is narrow END-TO-END
+        (NonBottleneck1d), not when only its waist is narrow. Kept behind
+        ESN_TPU_FOLD_ENET=1."""
         def act(m, s, y):
             if isinstance(m, nn.PReLU):
                 return m.folded_apply(s, y, f)
@@ -185,13 +185,11 @@ class UpsamplingBottleneck(nn.Module):
         self.reduce = nn.Sequential(nn.Conv(in_ch, mid, 1, bias=False),
                                     nn.BatchNorm(mid), _act(relu, mid))
         self.up = nn.Sequential(
-            # zero_insert, not subpixel: ENet's b64 2048x1024 graph with
-            # subpixel internal ups crashes the TPU compile helper
-            # (reproducible HTTP 500); with zero-insert ups + a naive head
-            # argmax the b64 graph compiles and runs 189.7 img/s vs 125 at
-            # the b32 fallback (tools/bench_zoo, ESN_TPU_SUBPIXEL_CONVT=0
-            # A/B). Subpixel gains nothing here anyway: mid is 16-32ch, the
-            # same narrow-waist regime where folding lost (see _folded).
+            # zero_insert, not subpixel: subpixel internal ups make ENet's
+            # large-batch graph much bigger (tuned before the GPU port; not
+            # measured on the H100), and gain nothing here anyway: mid is
+            # 16-32ch, the same narrow-waist regime where folding lost (see
+            # _folded).
             nn.ConvTranspose(mid, mid, 3, stride=2, padding=1,
                              output_padding=1, bias=False,
                              lowering="zero_insert"),
@@ -273,9 +271,8 @@ class ENet(nn.Module):
     def predict(self, scope, x):
         """Fused prediction head — see blocks.subpixel_predict_tail.
         argmax_tail="resize" (= plain jnp.argmax) on the phase logits: the
-        packed-key argmax pushes ENet's b64 graph over the TPU compile
-        helper's ceiling (HTTP 500), and the phase conv is a cheap producer
-        here, so naive costs nothing (189.7 img/s b64 measured).
+        packed-key argmax only makes ENet's graph larger, and the phase
+        conv is a cheap producer here, so naive costs nothing.
 
         ENet caveat: __call__ pins the head to the zero_insert lowering
         while this path evaluates the same math via the subpixel phase

@@ -1,4 +1,4 @@
-"""ERFNet (Romera et al. 2017) — NHWC, TPU-native.
+"""ERFNet (Romera et al. 2017) — NHWC.
 
 Reference counterpart: ``model/ERFNet.py`` [R] (DownsamplerBlock,
 non_bottleneck_1d, Encoder/Decoder). ~2.06M params, paper 68.0 mIoU.
@@ -22,8 +22,8 @@ class ERFNet(nn.Module):
         # nb1d(64) stack scans directly; the 2x [d=2,4,8,16] stage scans a
         # 4-block Sequential pattern (structurally identical across the two
         # repeats — dilation is static inside the body). Graph size becomes
-        # repeat-independent, attacking the compile-helper ceiling that
-        # blocks ERFNet's b8 full-res training graph.
+        # repeat-independent, which keeps ERFNet's full-res training graph
+        # and its compile time small.
         self.encoder = nn.Sequential(
             DownsamplerConcat(in_ch, 16, act="relu"),
             DownsamplerConcat(16, 64, act="relu"),

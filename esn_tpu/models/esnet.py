@@ -1,4 +1,4 @@
-"""ESNet (Wang et al. 2019, arXiv 1906.09826) — NHWC, TPU-native.
+"""ESNet (Wang et al. 2019, arXiv 1906.09826) — NHWC.
 
 Reference counterpart: ``model/ESNet.py`` [R] (DownsamplerBlock, FCU, PFCU,
 UpsamplerBlock). ~1.66M params, paper 70.7 mIoU.
@@ -52,7 +52,7 @@ class PFCU(nn.Module):
 class ESNet(nn.Module):
     def __init__(self, classes: int = 19, in_ch: int = 3):
         # repeated FCU/PFCU stacks run as lax.scan bodies (nn.ScanChain):
-        # graph size becomes repeat-independent (compile-helper headroom)
+        # graph size becomes repeat-independent (shorter compiles)
         self.encoder = nn.Sequential(
             DownsamplerConcat(in_ch, 16, act="relu"),
             nn.ScanChain(NonBottleneck1d(16, k=3, dropout=0.03), 3,

@@ -46,23 +46,19 @@ class ESPModule(nn.Module):
         self.residual = residual and stride == 1 and in_ch == out_ch
 
     def __call__(self, scope, x):
-        # per-model default (ctor): ON everywhere since the ScanChain
-        # rewrite — the tiled-kernel graph used to push ESPNet-C's b64
-        # full-res eval graph over the compile-helper ceiling (b16 fallback
-        # 84.3 vs 140.2 plain), but with the levels scanned it compiles and
-        # wins: espnet_c 154.7 -> 180.6 img/s b64 2048x1024 bf16.
+        # per-model default (ctor): ON everywhere since the ScanChain rewrite
+        # keeps the tiled-kernel graph small (tuned before the GPU port; not
+        # measured on the H100).
         # Env forces: 1 = on, 0 = off.
         mode = os.environ.get("ESN_TPU_ESP_FUSED_HFF", "")
         on = self.fused_hff if mode == "" else mode == "1"
-        # reduce-fold experiment: when the reduce is 1x1/s1 and the input
-        # is a plain tensor, compose reduce INTO the branch kernels
-        # (reduce has no BN/act before the branches — purely linear,
-        # exact; f64 parity test). Hypothesis was that killing the
-        # lane-padded d~25-ch reduced tensor beats the 5x dense-K flops.
-        # MEASURED WRONG: espnet_c 193.0 (folded) vs 301.3 (unfolded)
-        # img/s b128 2048x1024 bf16, and the bigger kernels push espnet
-        # over the b64 compile-helper ceiling — default OFF, kept as an
-        # env-gated experiment (ESN_TPU_ESP_FOLD_REDUCE=1).
+        # reduce-fold experiment: when the reduce is 1x1/s1 and the input is a
+        # plain tensor, compose reduce INTO the branch kernels (reduce has no
+        # BN/act before the branches — purely linear, exact; f64 parity test).
+        # Hypothesis was that killing the lane-padded d~25-ch reduced tensor
+        # beats the 5x dense-K flops. It was wrong before the GPU port, where
+        # espnet_c slowed down (not measured on the H100) — default OFF, kept
+        # as an env-gated experiment (ESN_TPU_ESP_FOLD_REDUCE=1).
         fold = (on and not scope.is_init
                 and not isinstance(x, (list, tuple))
                 and tuple(self.reduce.kernel) == (1, 1)
@@ -104,9 +100,10 @@ class ESPModule(nn.Module):
 
         The reference computes K narrow dilated convs (d_out = 12-28 ch),
         prefix-sums them (HFF de-gridding [R: model/ESPNet.py
-        DilatedParllelResidualBlockB]) and concatenates. On the MXU a
-        25-channel conv output wastes 4/5 of the result tile, and the
-        prefix chain + concat are extra HBM round trips. Because everything
+        DilatedParllelResidualBlockB]) and concatenates. On a 128-wide
+        matrix unit a 25-channel conv output wastes 4/5 of the result
+        tile, and the prefix chain + concat are extra memory round
+        trips. Because everything
         between the branch convs and the BN is linear, the concat of
         prefix sums IS a sum of K full-width convs whose kernels place the
         branch kernel in every concat block it reaches (branch 0 -> block
@@ -171,9 +168,8 @@ class ESPNetC(nn.Module):
                                fused_hff=fh)
         # identical repeated ESP modules run as ONE lax.scan body
         # (nn.ScanChain, same treatment as CGNet's stages): graph size
-        # becomes depth-independent, which is what keeps the b64 full-res
-        # eval graph under the TPU compile-helper ceiling — the blocker
-        # that forced fused-HFF off for ESPNet-C in round 2's first wave
+        # becomes depth-independent, which keeps the full-res eval graph
+        # and its compile time small
         self.level2 = nn.ScanChain(ESPModule(64, 64, fused_hff=fh), alpha2)
         self.b2 = BNAct(128 + in_ch, act="prelu", bn_eps=BN_EPS)
         self.down2 = ESPModule(128 + in_ch, 128, stride=2, residual=False,
@@ -188,8 +184,8 @@ class ESPNetC(nn.Module):
         concats (lists of pieces): BN/PReLU slice their per-channel params
         and every consumer (the down ESP reduce convs here, the decoder
         proj convs in ESPNet) splits its kernel over the pieces — exact,
-        and the lane-misaligned 19/131-ch tensors never exist (same
-        rewrite that bought CGNet +37 img/s)."""
+        and the misaligned 19/131-ch tensors never exist (the same
+        rewrite as CGNet's)."""
         i1 = scope("inj1", self.inj1, x)
         i2 = scope("inj2", self.inj2, x)
         s = scope("stem", self.stem, x)                       # 1/2
@@ -239,11 +235,9 @@ class ESPNet(nn.Module):
         # ESN_TPU_ESPNET_PIECES=1 the proj convs split their kernels over
         # the pieces and the decoder skip concats ride as pieces into
         # mix2's reduce / mix1's conv. Default OFF for the decoder: the
-        # piece convs add graph nodes that push ESPNet's b64 full-res eval
-        # graph over the TPU compile-helper ceiling (persistent HTTP 500
-        # -> b32 fallback at 107.3 img/s), while materializing the decoder
-        # concats compiles at b64 and wins: 134.6 img/s 2048x1024 bf16
-        # (the encoder's own injections stay virtual inside ESPNetC).
+        # piece convs add graph nodes, and materializing the decoder
+        # concats was faster before the GPU port (not measured on the H100; the
+        # encoder's own injections stay virtual inside ESPNetC).
         f1, f2, f3 = self.enc.encode(scope.child("enc"), x)
         pieces = os.environ.get("ESN_TPU_ESPNET_PIECES", "0") == "1"
         if not pieces:

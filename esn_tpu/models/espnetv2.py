@@ -55,13 +55,11 @@ class EESP(nn.Module):
         if self.stride == 2:
             y = P.avg_pool2d(y, 3, 2, 1)
         f = 1
-        # ESN_TPU_FOLD_DW default OFF: the shift-FMA folded depthwise
-        # path measured SLOWER at inference than XLA's native depthwise
-        # lowering despite full lane density (cgnet 83.9 -> 52.8, dabnet
-        # 231.1 -> 183.7, fpenet 84.3 -> 57.0, espnetv2 68.5 -> 37.9
-        # img/s b-best 2048x1024 bf16) — the 9-tap re-read pattern costs
-        # more HBM traffic than the lane padding it removes. Kept as an
-        # exact, tested, opt-in alternative.
+        # ESN_TPU_FOLD_DW default OFF: before the GPU port the shift-FMA
+        # folded depthwise path was slower at inference than XLA's native
+        # depthwise lowering — the 9-tap re-read pattern costs more
+        # memory traffic than the padding it removes (not measured on the
+        # H100). Kept as an exact, tested, opt-in alternative.
         if (os.environ.get("ESN_TPU_FOLD_DW", "0") == "1" and not scope.is_init
                 and all(b.groups == b.in_ch == b.out_ch
                         for b in self.branches)):
@@ -85,7 +83,7 @@ class EESP(nn.Module):
         """Lane-folded branch sector (ops.folding; CGBlock._folded
         rationale): the k depthwise dilated 3x3 branches run on d =
         out_ch/k = 8-64 channels (reference EESP in
-        model/ESPNet_v2/Model.py [R]) — up to 94% lane-padding waste. W
+        model/ESPNet_v2/Model.py [R]) — up to 94% channel padding. W
         folds once; branches, HFF additive fusion and concat-BN run at
         full density; the grouped 1x1s stay unfolded. Exact (tested)."""
         d = self.branches[0].in_ch

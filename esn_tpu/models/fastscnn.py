@@ -1,4 +1,4 @@
-"""Fast-SCNN (Poudel et al. 2019, arXiv 1902.04502) — NHWC, TPU-native.
+"""Fast-SCNN (Poudel et al. 2019, arXiv 1902.04502) — NHWC.
 
 Reference counterpart: ``model/FastSCNN.py`` [R] (LearningToDownsample,
 GlobalFeatureExtractor, FeatureFusionModule, Classifer). Flagship of the

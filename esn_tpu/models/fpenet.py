@@ -1,4 +1,4 @@
-"""FPENet (Liu & Yin 2019, arXiv 1909.08599) — NHWC, TPU-native.
+"""FPENet (Liu & Yin 2019, arXiv 1909.08599) — NHWC.
 
 Reference counterpart: ``model/FPENet.py`` [R] (FPEBlock, MEUModule,
 SEModule). ~0.38M params, paper 70.1 mIoU.
@@ -69,13 +69,11 @@ class FPEBlock(nn.Module):
         if fold > 1 and x.shape[-1] == self.fold_in * self.in_ch:
             return self._folded2(scope, x, fold)
         f = 1
-        # ESN_TPU_FOLD_DW default OFF: the shift-FMA folded depthwise
-        # path measured SLOWER at inference than XLA's native depthwise
-        # lowering despite full lane density (cgnet 83.9 -> 52.8, dabnet
-        # 231.1 -> 183.7, fpenet 84.3 -> 57.0, espnetv2 68.5 -> 37.9
-        # img/s b-best 2048x1024 bf16) — the 9-tap re-read pattern costs
-        # more HBM traffic than the lane padding it removes. Kept as an
-        # exact, tested, opt-in alternative.
+        # ESN_TPU_FOLD_DW default OFF: before the GPU port the shift-FMA
+        # folded depthwise path was slower at inference than XLA's native
+        # depthwise lowering — the 9-tap re-read pattern costs more
+        # memory traffic than the padding it removes (not measured on the
+        # H100). Kept as an exact, tested, opt-in alternative.
         if (os.environ.get("ESN_TPU_FOLD_DW", "0") == "1" and not scope.is_init
                 and self.stride_ == 1):
             f = folding.fold_factor(self.g, x.shape[2])
@@ -101,7 +99,8 @@ class FPEBlock(nn.Module):
         """Lane-folded execution (ops.folding; CGBlock._folded rationale).
         The in-block feature pyramid runs depthwise 3x3 convs on g =
         mid/scales = 4-64 channel groups (reference model/FPENet.py
-        FPEBlock [R]) — at g=4 that is 3% lane density. W folds into
+        FPEBlock [R]) — at g=4 that is 3% channel density. W folds
+        into
         channels once; group slices come from the fold-layout reshape;
         dilations with f | d are slot-uniform, the rest take the
         mixed-slot slice path. Exact (tested)."""
@@ -154,12 +153,13 @@ class FPEBlock(nn.Module):
 
         - the expand 1x1 splits by OUTPUT-channel group into ``scales``
           folded convs, each emitting one group directly — the mid-channel
-          concat and its 4x-padded 32-ch slices (measured 43.6 ms of the
-          50.7 ms HFF chain at stage2 b64, tools/bench_fpe_parts.py) never
-          exist; BN runs per group via ``folded_slice_apply`` (exact);
+          concat and its 4x-padded 32-ch slices (most of the HFF chain's
+          time before the GPU port) never exist; BN runs per group via
+          ``folded_slice_apply`` (exact);
         - each depthwise dilated 3x3 runs as ONE dense block-banded folded
-          conv on the MXU (``depthwise_dense_kernel`` + ``folded_kernel``):
-          4.7-6.9 ms vs 31.6 ms mixed-slot shift-FMA per conv;
+          conv on the matrix unit (``depthwise_dense_kernel`` +
+          ``folded_kernel``), which beat the mixed-slot shift-FMA before the
+          GPU port;
         - the project 1x1 splits by INPUT-channel group (sum of per-group
           convs, f32 accumulation) so the concat stays virtual.
 
@@ -193,11 +193,10 @@ class FPEBlock(nn.Module):
             wd, _ = dw.conv.params(ds.child("conv"))
             d = dw.conv.dilation if isinstance(dw.conv.dilation, tuple) \
                 else (dw.conv.dilation,) * 2
-            # per-(f, d) lowering, measured at both stage geometries
-            # (tools/bench_fpe_parts.py / _tmp: stage2 f=4: banded wins all
-            # dilations 4.7-6.9 ms vs 8.0-31.6 shift; stage3 f=2: banded
-            # wins d=1,2,4 at 2.4-3.2 ms but its U=9 span at d=8 costs
-            # 5.6 vs 4.1 for the slot-uniform shift-FMA path).
+            # per-(f, d) lowering, tuned at both stage geometries before the
+            # GPU port (not measured on the H100): banded wins everywhere but
+            # at a wide span (U=9 at d=8, f=2), where the slot-uniform
+            # shift-FMA path wins.
             u = d[1] * 2 // f + 1
             if d[1] % f == 0 and u >= 7:
                 prev = folding.folded_depthwise_conv(
@@ -258,7 +257,7 @@ class FPENet(nn.Module):
         self.stage1 = FPEBlock(w, w, t=1)
         self.down2 = FPEBlock(w, 2 * w, stride=2, t=4)               # 1/4
         # repeated FPE blocks run as lax.scan bodies (nn.ScanChain):
-        # graph size becomes repeat-independent (compile-helper headroom)
+        # graph size becomes repeat-independent (shorter compiles)
         self.stage2 = nn.ScanChain(FPEBlock(2 * w, 2 * w, t=4), 2)
         self.down3 = FPEBlock(2 * w, 4 * w, stride=2, t=4)           # 1/8
         self.stage3 = nn.ScanChain(FPEBlock(4 * w, 4 * w, t=4), 8)
@@ -283,7 +282,7 @@ class FPENet(nn.Module):
         s1 = scope("stage1", self.stage1, scope("stem", self.stem, x))
         # fold factors derived from the blocks (not hardcoded for width=16):
         # stage1's output folds by down2's expected input fold; each stage
-        # output unfolds by that stage's own fold factor (ADVICE r2)
+        # output unfolds by that stage's own fold factor
         fin = self.down2.fold_in
         if (self.down2.fold_now() > 1 and self.stage2.block.fold_now() > 1
                 and self.stage3.block.fold_now() > 1
@@ -301,13 +300,12 @@ class FPENet(nn.Module):
         return scope("meu1", self.meu1, y, s1)     # 1/2
 
     def predict(self, scope, x):
-        """Fused prediction tail (ops.classify.resize2x_head_argmax): the
-        head sits at 1/2 res, so the default argmax(resize(logits)) tail
-        materializes full-res class logits — 141 ms of the 506 ms b64
-        step. The fused (bilinear x head) phase conv computes argmax at
-        half res and interleaves indices; full-res logits never exist.
-        bf16 caveat: same math, different f32 association — argmax can
-        differ at near-tie pixels (both are valid roundings)."""
+        """Fused prediction tail (ops.classify.resize2x_head_argmax): the head
+        sits at 1/2 res, so the default argmax(resize(logits)) tail
+        materializes full-res class logits. The fused (bilinear x head) phase
+        conv computes argmax at half res and interleaves indices; full-res
+        logits never exist. bf16 caveat: same math, different f32 association —
+        argmax can differ at near-tie pixels (both are valid roundings)."""
         from ..ops import classify as CL
         if (x.shape[1] % 2 or x.shape[2] % 2
                 or os.environ.get("ESN_TPU_FUSED_PREDICT", "1") == "0"):

@@ -1,4 +1,4 @@
-"""LEDNet (Wang et al. 2019, arXiv 1905.02423) — NHWC, TPU-native.
+"""LEDNet (Wang et al. 2019, arXiv 1905.02423) — NHWC.
 
 Reference counterpart: ``model/LEDNet.py`` [R] (SS_nbt_module,
 DownsamplerBlock, channel_shuffle, APN_Module). ~0.94M params, paper 70.6.

@@ -1,6 +1,6 @@
 """Functional module calculus — the framework core.
 
-A from-scratch, TPU-first replacement for the reference's ``torch.nn.Module``
+A from-scratch, functional replacement for the reference's ``torch.nn.Module``
 layer (reference: every ``model/*.py`` builds on torch modules [R]). Design:
 
 - **Pure functions**: ``init(module, rng, *args)`` builds a variables pytree,
@@ -265,7 +265,7 @@ class ScanChain(Module):
     Deep repeated-block models (CGNet's 20-block stage3, reference
     ``model/CGNet.py`` ContextGuidedBlock stack [R]) unroll into huge HLO
     under ``jit``: every block is re-lowered, compile time scales with depth,
-    and big-batch graphs hit the TPU compile-helper complexity ceiling.
+    and big-batch graphs take minutes to compile.
     Under ``lax.scan`` the block body is compiled ONCE and iterated, so graph
     size is depth-independent — the canonical XLA treatment of repeated
     structure (same trick as scanned transformer layers).
@@ -283,14 +283,11 @@ class ScanChain(Module):
     folded in so dropout masks differ per block.
 
     Scan is a graph-size/throughput trade: the scanned body blocks XLA's
-    cross-block fusion and forces the carry through HBM each step, which
-    measured 5-18% slower at big-batch INFERENCE on models whose unrolled
-    eval graphs compile fine (esnet 182.7 vs 150.0, erfnet 184.4 vs 168.9,
-    dabnet 231.1 vs 216.9, fssnet 259.9 vs 247.4 img/s b64 2048x1024 bf16)
-    — while being the only thing that gets CGNet/ESPNet-C big-batch eval
-    and deep training graphs under the compile-helper ceiling at all.
-    ``eval_unroll=True`` (per-model, measured) unrolls eval/inference and
-    keeps training scanned.
+    cross-block fusion and forces the carry through device memory each
+    step, which was slower at big-batch INFERENCE before the GPU port (not
+    measured on the H100) — while keeping CGNet/ESPNet-C big-batch eval and
+    deep training graphs small. ``eval_unroll=True`` (per-model) unrolls
+    eval/inference and keeps training scanned.
 
     ``ESN_TPU_SCAN_CHAIN=0`` forces the unrolled path everywhere;
     ``ESN_TPU_SCAN_CHAIN=1`` forces scan everywhere (overrides

@@ -28,10 +28,10 @@ def _s2d_stem_enabled(scope) -> bool:
 
     Consulted by the conv||pool concat stem blocks (models/blocks.py
     DownsamplerConcat, models/enet.py InitialBlock), where the pool shares
-    the conv's relayout and the lowering measured a win (ERFNet full-res
-    train b4 +8.7%). Plain single-conv stems do NOT engage: generic
-    per-conv engagement measured a 20% training regression on Fast-SCNN
-    (118.3 vs 147.8 img/s b8 full-res)."""
+    the conv's relayout and the lowering won for ERFNet training. Plain
+    single-conv stems do NOT engage: generic per-conv engagement slowed
+    Fast-SCNN training (both tuned before the GPU port; not measured on
+    the H100)."""
     if scope.is_init:
         return False
     mode = os.environ.get("ESN_TPU_S2D_STEM", "train")
@@ -91,10 +91,9 @@ class Conv(Module):
             # from tap positions assuming output width == input width.
             # EXPERIMENTAL, default off: per-conv lane folding pays a
             # fold/unfold relayout around every conv while the elementwise
-            # ops between stay lane-padded — measured a net LOSS on ENet
-            # (86 vs 125 img/s b32). Folding wins at BLOCK granularity
-            # (one fold, whole block folded, one unfold): see
-            # NonBottleneck1d._folded (+3.5x on ERFNet).
+            # ops between stay lane-padded — a net loss on ENet before
+            # the GPU port. Folding wins at BLOCK granularity (one fold,
+            # whole block folded, one unfold): see NonBottleneck1d._folded.
             from ..ops import folding
             f = folding.fold_factor(self.in_ch, x.shape[2])
             if f > 1:
@@ -106,10 +105,8 @@ class Conv(Module):
         if (os.environ.get("ESN_TPU_S2D_CONV", "0") == "1"
                 and not scope.is_init and self.groups == 1):
             # EXPERIMENTAL generic s2d engagement on any eligible
-            # tiny-channel stride-2 conv (the RGB stem): r5 audit_dx
-            # measured the fastscnn stem at 11.2 ms of the 57 ms b8
-            # full-res train step (fwd 5.4 ms @ 8% HBM + native dW
-            # 5.8 ms @ 13% HBM — the 3-ch lane-padding pathology).
+            # tiny-channel stride-2 conv (the RGB stem), whose 3 channels
+            # leave the channel axis mostly padding.
             from ..ops import s2d as S
             if S.s2d_eligible(x.shape, w.shape, _pair(self.stride),
                               _pair(self.padding), _pair(self.dilation),
@@ -117,8 +114,7 @@ class Conv(Module):
                 if self.in_ch <= 4:
                     # true RGB stem: lane-full W-folded lowering (pure
                     # reshapes, no shuffle). The s2d(2,2) alternative
-                    # measured 148.8 -> 92.2 img/s on fastscnn b8 (12-ch
-                    # folded input lane-pads 10.7x — r5 audit_dx)
+                    # pads its 12-ch folded input 10.7x
                     return S.w_fold_stem_conv(
                         x, w, stride=_pair(self.stride),
                         padding=_pair(self.padding), bias=b)
@@ -127,13 +123,11 @@ class Conv(Module):
         if (1 < self.groups < self.in_ch
                 and os.environ.get("ESN_TPU_DENSE_GROUPED", "1") != "0"):
             # Grouped (non-depthwise) convs lower to per-group matmuls whose
-            # contraction dim (in_ch/groups = 32-128 here) under-fills the
-            # 128x128 MXU; embedding the groups as a block-diagonal DENSE
+            # contraction dim (in_ch/groups = 32-128 here) under-fills a
+            # matrix unit; embedding the groups as a block-diagonal DENSE
             # kernel is exactly the same math (off-diagonal zeros are exact
-            # in the f32 accumulator) and measured ~2x faster at every
-            # EESP geometry (tools/bench_eesp_parts.py, b64 2048x1024
-            # bf16: reduce 18.8->9.3 ms, expand 18.8->10.0 at 1/4-res
-            # 128ch; 12.5->4.8 at 1/8 256ch; 4.2->2.3 at 1/16 512ch).
+            # in the f32 accumulator) and was ~2x faster at every EESP
+            # geometry before the GPU port (not measured on the H100).
             # Reference grouped convs: ESPNetv2 reduce/expand, groups=4
             # [R: model/ESPNet_v2/Model.py]. Depthwise (groups==in_ch)
             # keeps the native path.
@@ -149,7 +143,7 @@ class Conv(Module):
         split of the kernel. Each piece keeps its own lane-friendly layout
         and the misaligned concat never exists (see BatchNorm.pieces_apply).
         Piece partial sums accumulate in f32 and round once, like the fused
-        conv's MXU accumulator. groups=1 only."""
+        conv's accumulator. groups=1 only."""
         assert self.groups == 1
         w, b = self.params(scope)
         acc, lo = None, 0
@@ -316,30 +310,16 @@ class BatchNorm(Module):
             offset = jnp.tile(offset, fold)
         return (x * scale.astype(x.dtype) + offset.astype(x.dtype))
 
-    def eval_affine(self, scope: Scope):
-        """Eval-semantics BN as (scale, offset) f32 per-channel vectors —
-        ``y = x*scale + offset`` — for fused kernels that fold the affine
-        into a conv epilogue (ops/pallas)."""
-        c = self.num_features
-        mean = scope.stat("mean", init.zeros, (c,))
-        var = scope.stat("var", init.ones, (c,))
-        scale = jax.lax.rsqrt(var.astype(jnp.float32) + self.eps)
-        if self.affine:
-            scale = scale * scope.param("scale", init.ones, (c,))
-            offset = scope.param("bias", init.zeros, (c,)) - mean * scale
-        else:
-            offset = -mean * scale
-        return scale, offset
-
     def pieces_apply(self, scope: Scope, pieces):
         """BN over a VIRTUAL channel concat given as a list of tensors.
 
         Odd-width concats (e.g. CGNet's 32+3 / 64+64+3 raw-input injections,
-        reference InputInjection concat [R: model/CGNet.py]) poison TPU lane
-        layouts for every consumer; keeping the pieces separate and slicing
-        the per-channel parameters is exact (BN is independent per channel)
-        and lets each piece stay in its natural layout. Parameters/stats
-        remain full-length — checkpoint-identical to the concat path.
+        reference InputInjection concat [R: model/CGNet.py]) give every
+        consumer a misaligned channel layout; keeping the pieces separate and
+        slicing the per-channel parameters is exact (BN is independent per
+        channel) and lets each piece stay in its natural layout.
+        Parameters/stats remain full-length — checkpoint-identical to the
+        concat path.
         """
         c = self.num_features
         offs = [0]
@@ -397,11 +377,6 @@ class PReLU(Module):
             a = jnp.tile(a, fold)
         a = a.astype(x.dtype)
         return jnp.where(x >= 0, x, a * x)
-
-    def slopes(self, scope: Scope) -> jnp.ndarray:
-        """Fetch/create the per-channel slope vector (for fused kernels)."""
-        return scope.param("alpha", init.constant(self.init_value),
-                           (self.num_parameters,))
 
     def pieces_apply(self, scope: Scope, pieces):
         """PReLU over a virtual channel concat (see BatchNorm.pieces_apply);

@@ -49,14 +49,13 @@ def argmax_lastdim(x, tail: str = "conv"):
 
     - ``jnp.argmax`` is a VARIADIC reduce; XLA refuses its producer into the
       reduction and recomputes it per class. After an expensive producer
-      (ESPNet's transposed-conv decoder) that is catastrophic — measured
-      127 ms on (8,1024,2048,19), half the inference step, vs 2.6 ms for
-      the bare op (tools/bench_argmax.py, tools/bench_convt_subpixel.py).
+      (ESPNet's transposed-conv decoder) that is catastrophic: the
+      producer's full cost is paid once per class.
     - But when the producer is a cheap low-res bilinear upsample
       (Fast-SCNN & friends), that same refusion is OPTIMAL: full-res logits
-      never touch HBM, and recomputing an upsample per class is nearly
-      free. Any single-pass reformulation loses ~15% end-to-end
-      (tools/bench_argmax_variants.py: 923 vs 792 img/s on Fast-SCNN b128).
+      never touch device memory, and recomputing an upsample per class is
+      nearly free; single-pass reformulations lost end to end before the
+      GPU port (not measured on the H100).
 
     So: ``tail="resize"`` (model ends in ``ops.resize``) keeps
     ``jnp.argmax``; ``tail="conv"`` (default — conv/deconv/unpool tails)
@@ -78,47 +77,49 @@ def argmax_lastdim(x, tail: str = "conv"):
     return _argmax_two_pass(x)
 
 
-def fused_resize_argmax(y, out_hw):
-    """Fused ``argmax(resize_bilinear(y.astype(f32), out_hw))`` via the
-    Pallas phase kernel (ops.pallas.resize_argmax) — the tail shared by
-    nine zoo models [R: every model/*.py forward ending in
-    F.interpolate(mode='bilinear')]. Returns ``None`` when ineligible
-    (caller falls back to the unfused tail): non-integer or non-uniform
-    scale, class count >64, non-TPU backend, VMEM-unfriendly geometry,
-    or ESN_TPU_FUSED_RESIZE_ARGMAX=0.
+def fused_resize_argmax(y, out_hw, *, backend=None, interpret=False):
+    """Fused ``argmax(resize_bilinear(y.astype(f32), out_hw))`` through the
+    Pallas-Triton kernel (ops.pallas.resize_argmax) — the tail shared by
+    eight zoo models [R: every model/*.py forward ending in
+    F.interpolate(mode='bilinear')]. Returns ``None`` when the plain tail
+    should run instead: on any backend but ``gpu``, for a non-integer or
+    anisotropic scale, a scale outside 2..8, or more than 64 classes.
 
-    On the flagship this replaces the 53.7 ms iota_reduce_fusion of
-    Fast-SCNN's b128 predict step with a ~19 ms kernel+interleave
-    (tools/bench_resize_argmax.py). Near-tie caveat: the kernel argmaxes
-    the f32 interpolation (as the torch reference does); the unfused tail
-    rounds to the model dtype first, so argmax can differ where rounding
-    creates ties — both are valid answers at those pixels.
+    ``backend`` defaults to ``jax.default_backend()``; ``interpret=True``
+    runs the kernel in the Pallas interpreter (tests on the CPU).
+    Near-tie caveat: the kernel argmaxes the f32 interpolation (as the
+    torch reference does); the plain tail rounds to the model dtype first,
+    so argmax can differ where rounding creates ties — both are valid
+    answers at those pixels.
     """
     import jax
-    if os.environ.get("ESN_TPU_FUSED_RESIZE_ARGMAX", "1") == "0":
+    if (backend or jax.default_backend()) != "gpu":
         return None
-    n, h, w, c = y.shape
+    r = resize_argmax_factor(y.shape, out_hw)
+    if r is None:
+        return None
+    from .pallas.resize_argmax import resize_argmax
+    return resize_argmax(y, r, interpret=interpret)
+
+
+def resize_argmax_factor(shape, out_hw):
+    """Upsampling factor r when the fused kernel takes logits of ``shape``
+    (B, h, w, C) to ``out_hw``: an integer isotropic r in 2..8 and
+    2 <= C <= 64. None otherwise."""
+    _, h, w, c = shape
     oh, ow = out_hw
     if oh % h or ow % w or oh // h != ow // w:
         return None
     r = oh // h
     if not 2 <= r <= 8 or not 2 <= c <= 64:
         return None
-    if jax.default_backend() != "tpu":
-        return None
-    # VMEM guard: input block + double-buffered output block
-    itemsize = jnp.dtype(y.dtype).itemsize
-    vmem = c * (h + 8) * w * itemsize * 2 + 2 * r * r * 32 * w * 4
-    if vmem > 10 * 2**20:
-        return None
-    from .pallas.resize_argmax import resize_argmax
-    return resize_argmax(y, r)
+    return r
 
 
 def resize_tail_argmax(y, out_hw, *, tail: str = "resize"):
-    """The standard resize-tail prediction: fused Pallas kernel when
-    eligible, else exactly the unfused tail the model's __call__ ships
-    (f32 bilinear -> model dtype -> argmax)."""
+    """The standard resize-tail prediction: the fused kernel where
+    :func:`fused_resize_argmax` selects it, else exactly the unfused tail
+    the model's __call__ ships (f32 bilinear -> model dtype -> argmax)."""
     out = fused_resize_argmax(y, out_hw)
     if out is not None:
         return out
@@ -135,8 +136,7 @@ def subpixel_argmax(x, kernel, bias, *, stride, padding,
     ``argmax(depth_to_space(z)) == depth_to_space(argmax per phase)`` —
     depth-to-space only permutes pixels — so this is exact, but the
     full-resolution class-channel logits never exist: the only full-res
-    tensor is the int32 prediction map. (ESPNet b8: 64.4 vs 36.5 img/s,
-    tools/bench_convt_subpixel.py variant E.)
+    tensor is the int32 prediction map.
 
     x: (N,H,W,I) features; kernel/bias: the ConvTranspose's parameters.
     """
@@ -158,9 +158,8 @@ def resize2x_head_argmax(y, w, b, *, argmax_tail: str = "conv"):
 
     For a model whose head sits at 1/2 res (FPENet's MEU decoder
     [R: model/FPENet.py]), the default tail materializes full-res class
-    logits — the f32 bilinear intermediate plus the classes->128-lane
-    padded writes measured 141 ms of FPENet's 506 ms b64 step
-    (tools/bench_fpenet_decomp.py). Both ops are linear, so
+    logits — the f32 bilinear intermediate plus its writes at full
+    resolution. Both ops are linear, so
     resize∘head is ONE conv: each of the 4 subpixel phases of the 2x
     half-pixel-centre bilinear (torch align_corners=False, as
     ops.resize.resize_bilinear) is a fixed 2x2-tap convex combination,

@@ -1,9 +1,9 @@
-"""Convolution primitives, NHWC / HWIO — the TPU-native layout.
+"""Convolution primitives, NHWC / HWIO.
 
 The reference gets all conv FLOPs from cuDNN via ``torch.nn.Conv2d`` (NCHW)
 [R: every model/*.py]. Here everything is ``lax.conv_general_dilated`` in
-NHWC so XLA tiles directly onto the MXU; bf16 inputs accumulate in fp32 on
-the MXU automatically.
+NHWC, which XLA hands to cuDNN on the GPU; bf16 inputs accumulate in
+fp32.
 
 Shape semantics mirror torch's integer-padding convention exactly (the model
 zoo's geometry depends on it): ``out = floor((H + 2p - d*(k-1) - 1)/s) + 1``.
@@ -50,11 +50,11 @@ def _conv_raw(x, kernel, stride, padding, dilation, groups):
 def _conv_core(x, kernel, stride, padding, dilation, groups):
     """conv with a hand-written weight gradient.
 
-    XLA's native conv weight-grad on TPU lowers poorly for dense kernels
-    (measured ~15x slower than the forward at zoo shapes —
-    tools/bench_bwd_tmp.py); dW is mathematically K*K strided-slice
-    contractions, so emit exactly that: one ``(Ci, N*Ho*Wo) @ (N*Ho*Wo, Co)``
-    MXU matmul per tap. dx keeps XLA's native transposed-conv grad (fast).
+    XLA's native conv weight-grad lowered poorly for dense kernels on the
+    machine this was tuned on before the GPU port (not measured on the
+    H100); dW is mathematically K*K strided-slice contractions, so emit
+    exactly that: one ``(Ci, N*Ho*Wo) @ (N*Ho*Wo, Co)`` matmul per tap. dx
+    keeps XLA's native transposed-conv grad.
     """
     return _conv_raw(x, kernel, stride, padding, dilation, groups)
 
@@ -71,10 +71,9 @@ def _conv_bwd(stride, padding, dilation, groups, res, gy):
 
     kh, kw = kernel.shape[:2]
     if groups != 1 or kh * kw > 25 or x.shape[-1] < 8:
-        # depthwise/grouped: XLA's native dW is fine (measured); huge kernels:
+        # depthwise/grouped: XLA's native dW is fine; huge kernels:
         # tap-loop trace cost outweighs the win; tiny c_in (the RGB stem):
-        # the taps' pad+reshape costs more than native (measured 40 vs 13 ms
-        # at the zoo's full-res stride-2 stem — tools/bench_stem_dw.py)
+        # the taps' pad+reshape costs more than native
         _, vjp_w = jax.vjp(
             lambda w_: _conv_raw(x, w_, stride, padding, dilation, groups),
             kernel)
@@ -88,8 +87,7 @@ def _conv_bwd(stride, padding, dilation, groups, res, gy):
     c_in = x.shape[-1]
 
     if sh <= 2 and sw <= 2:
-        # Strided slices materialize (33 ms/step for the zoo's full-res
-        # stride-2 stem — profiled); decompose each axis by stride parity
+        # Strided slices materialize; decompose each axis by stride parity
         # with a free reshape so every tap is a unit-stride, fusable slice.
         # rows/cols the taps touch, rounded up to a stride multiple
         hp = -(-((kh - 1) * dh + ho * sh) // sh) * sh
@@ -234,9 +232,8 @@ def conv2d_transpose_subpixel(x: jnp.ndarray, kernel: jnp.ndarray, *,
     Requires ``k + output_padding - 2p == s`` per axis (out == s*H), which
     covers the zoo's two decoder geometries (k2s2p0 and k3s2p1op1). Wins
     twice over zero-insertion: the matmul runs at LOW res with s^2-fat output
-    channels (dense MXU work instead of 3/4-zero taps), and a class-axis
-    argmax downstream no longer refuses a full-res conv as its producer
-    (ESPNet: 251 -> measured in tools/bench_convt_subpixel.py).
+    channels (dense matrix work instead of 3/4-zero taps), and a class-axis
+    argmax downstream no longer refuses a full-res conv as its producer.
     """
     y = subpixel_phase_conv(x, kernel, stride=stride, padding=padding)
     y = depth_to_space(y, stride[0], stride[1])

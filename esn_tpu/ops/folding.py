@@ -1,7 +1,9 @@
 """Lane folding: pack W-adjacent pixels into channels for narrow-C stages.
 
-TPU VREGs and HBM tiles are 128 lanes wide on the channel (minor) axis, so
-a 16-channel activation wastes 7/8 of every vector op and memory tile. The
+Where vector registers and memory tiles are 128 lanes wide on the channel
+(minor) axis, as on the accelerator this was designed for before the GPU
+port, a 16-channel activation wastes 7/8 of every vector op and memory
+tile (not measured on the H100). The
 zoo's factorized decoders (ERFNet/ESNet nb1d(16/64) at 1/2 and 1/4 res,
 reference model/ERFNet.py :: non_bottleneck_1d [R]) spend most of their
 time exactly there.
@@ -18,7 +20,7 @@ tensor with a block-structured kernel:
   ``g`` — a block-banded kernel over ``U = Tmax-Tmin+1`` folded taps.
 
 The folded kernel is dense with structural zeros: F x more FLOPs for the
-W-taps, but every matmul is now 128-lane MXU-dense, and HBM traffic drops
+W-taps, but every matmul is now 128-lane dense, and memory traffic drops
 by F. Exactness is testable: same math, different association.
 """
 from __future__ import annotations
@@ -100,20 +102,22 @@ def folded_depthwise_conv(x: jnp.ndarray, w: jnp.ndarray, f: int, *,
                           dilation: Tuple[int, int] = (1, 1),
                           padding: Tuple[int, int] = (0, 0),
                           bias: Optional[jnp.ndarray] = None) -> jnp.ndarray:
-    """Depthwise conv on a W-folded tensor — full-lane VPU execution.
+    """Depthwise conv on a W-folded tensor — full-lane vector execution.
 
     ``x``: (B, H, W/f, f*C) slot-major (``fold_w`` layout); ``w``:
     (kh, kw, C) per-channel taps. Computes exactly
     ``fold_w(depthwise_conv(unfold_w(x)), f)`` for a stride-1 SAME conv.
 
-    Depthwise convs never touch the MXU — they are VPU shift-FMA loops, so
+    Depthwise convs never touch the matrix unit — they are vector shift-FMA
+    loops, so
     at C=32/64 (CGNet/DABNet/FPENet context branches, reference
     ChannelWiseDilatedConv [R: model/CGNet.py]) half to 3/4 of every
     128-wide vector op is padding. Here the conv is written as kh*kw
     shifted multiply-adds on the folded tensor (f*C lanes, dense); a
     W-tap whose offset is not a multiple of f reads its neighbors from a
     rolled slot — a static channel-block slice, fused by XLA into the
-    same loop. FLOPs are unchanged; lane density and HBM tiles improve f x.
+    same loop. FLOPs are unchanged; lane density and memory tiles improve
+    f x.
 
     Requires SAME geometry in both axes (every zoo depthwise conv is SAME):
     ``2*p == d*(k-1)`` per axis.
@@ -173,13 +177,12 @@ def depthwise_dense_kernel(w: jnp.ndarray) -> jnp.ndarray:
     per-channel taps on the I==O diagonal — same math, the off-diagonal
     zeros are exact in the f32 accumulator.
 
-    Why: a depthwise conv never touches the MXU, and in fold layout its
+    Why: a depthwise conv never touches the matrix unit, and in fold layout its
     mixed-slot W-taps need per-slot channel-block concats (lane shuffles).
     Densifying and folding (``folded_kernel`` of this) turns it into ONE
-    block-banded 128-lane MXU conv: measured 4.7-6.9 ms for every FPE
-    dilation at the stage2 geometry vs 31.6 ms mixed-slot shift-FMA and
-    5.7-8.3 ms unfolded+sliced (tools/bench_fpe_parts.py, b64 2048x1024
-    bf16). Reference depthwise dilated convs: FPEBlock / CGNet
+    block-banded 128-lane matrix conv, which beat both the mixed-slot shift-FMA
+    and the unfolded path for every FPE dilation before the GPU port (not
+    measured on the H100). Reference depthwise dilated convs: FPEBlock / CGNet
     ChannelWise(Dilated)Conv / DABNet [R: model/FPENet.py, model/CGNet.py].
     """
     kh, kw, one, c = w.shape

@@ -1,28 +1,3 @@
-"""Pallas TPU kernels (SURVEY.md §2.5 — the build's native-equivalent layer).
-
-Every kernel here has an XLA-composed fallback and a parity test against it
-(tests/test_pallas.py). Kernels engage only where they demonstrably beat the
-XLA-fused path; gating is central so models never hard-depend on Pallas.
-
-Env switch ``ESN_TPU_PALLAS``:
-  - ``auto`` (default): kernels on when running on a real TPU backend
-  - ``1``/``on``: force on (CPU runs use the interpreter — tests only)
-  - ``0``/``off``: force off (pure-XLA everywhere)
-"""
-from __future__ import annotations
-
-import os
-
-import jax
-
-from .dsconv import dsconv_ref, fold_bn, fused_dsconv  # noqa: F401
-
-
-def enabled() -> bool:
-    """Should fused Pallas kernels be used for this process/backend?"""
-    mode = os.environ.get("ESN_TPU_PALLAS", "auto").lower()
-    if mode in ("1", "on", "true"):
-        return True
-    if mode in ("0", "off", "false"):
-        return False
-    return jax.default_backend() == "tpu"
+"""Hand-written Pallas kernels, each beside the plain reference it is
+tested against. A kernel stays only while it beats what XLA compiles from
+the plain version, end to end on the card."""

@@ -1,30 +1,34 @@
-"""Fused bilinear-upsample + class-argmax prediction tail (Pallas).
+"""Fused bilinear-upsample + class-argmax prediction tail (Pallas, Triton).
 
-Nine zoo models end ``__call__`` with the same tail (reference: every
+Eight zoo models end ``__call__`` with the same tail (reference: every
 model/*.py whose forward finishes in ``F.interpolate(mode='bilinear')``
 [R]): logits at 1/r resolution -> f32 bilinear x r -> cast back -> argmax.
-The XLA lowering of that tail fuses the upsample INTO the variadic argmax
-reduce — full-res logits never hit HBM, but the reduce recomputes the
-2-tap interpolation per class with the 19-class axis in lanes (6.7x lane
-padding) and measured 53.7 ms of Fast-SCNN's 151 ms b128 predict step
-(iota_reduce_fusion; tools/bench_resize_argmax.py).
+Unfused, the upsample materialises full-resolution class logits (for
+Fast-SCNN at 2048x1024: 2048*1024*19*4 B ~ 159 MB per image) only to
+reduce them to one int32 per pixel.
 
-This kernel computes the interpolation ONCE per subpixel phase with the
-W axis in lanes (dense), runs a first-max compare chain over classes, and
-writes only int32 indices: the only full-res tensor that ever exists is
-the prediction map. Phases are emitted phase-major; a single XLA
-depth-to-space transpose outside the kernel interleaves them (argmax
-commutes with the pixel permutation, cf. ops.classify.subpixel_argmax).
+This kernel reads the low-res logits and writes only the int32 map. One
+program owns one image, one low-res row ``i`` and ``BLOCK_OUT`` adjacent
+full-res columns, one lane per column. Each lane works out its own
+horizontal tap pair and weight, then loops over the classes: it reads the
+two taps of the <= 3 contributing rows (i-1, i, i+1, clamped), forms the
+column interpolation once per row, and from it the r output rows
+r*i .. r*i+r-1. Each output row keeps a running (max, index) pair per lane
+— a strict ``>`` keeps the first class attaining the max, which is
+jnp.argmax's tie rule — so no class padding and no cross-lane reduction
+exist. The r index rows are stored straight to their interleaved
+full-res positions, each as one contiguous masked store: no phase-major
+intermediate and no depth-to-space transpose.
 
-Semantics: ``argmax(resize_bilinear(y.astype(f32), (r*h, r*w))
-.astype(y.dtype), axis=-1)`` with jnp.argmax's first-max tie rule.
-Half-pixel centers (torch align_corners=False): output pixel r*i+p reads
+Semantics: ``argmax(resize_bilinear(y.astype(f32), (r*h, r*w)), axis=-1)``.
+Half-pixel centres (torch align_corners=False): output pixel r*i+p reads
 source coordinate i + (p+0.5)/r - 0.5, a 2-tap convex combination; at the
 image border the out-of-range tap clamps (identical to jax.image.resize's
-kernel renormalization for the 2-tap case). Same math as the unfused tail
-up to f32 re-association of the separable interpolation — after the cast
-back to bf16, argmax can differ at near-tie pixels (both are valid
-roundings; parity-rate-tested in tests/test_pallas_resize_argmax.py).
+kernel renormalisation in the 2-tap case). The plain tail
+(:func:`resize_argmax_ref`) rounds the interpolation to the model dtype
+before its argmax, so in bf16 the two can differ at pixels where that
+rounding creates a tie; in f32 they differ only by the association of the
+separable interpolation (rate-tested in tests/test_pallas_resize_argmax.py).
 """
 from __future__ import annotations
 
@@ -32,13 +36,17 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
+
+# full-res columns per program and its warps: the fastest of (256, 4),
+# (512, 4), (512, 8), (1024, 8) for fastscnn's tail on an H100 (PERF.md)
+BLOCK_OUT = 512
+NUM_WARPS = 8
 
 
 def resize_argmax_ref(y: jnp.ndarray, factor: int) -> jnp.ndarray:
-    """XLA reference: the exact tail the models ship unfused."""
+    """Plain reference: the exact tail the models' ``__call__`` ships."""
     n, h, w, c = y.shape
     out = jax.image.resize(y.astype(jnp.float32),
                            (n, h * factor, w * factor, c), method="bilinear")
@@ -46,60 +54,48 @@ def resize_argmax_ref(y: jnp.ndarray, factor: int) -> jnp.ndarray:
 
 
 def _fracs(r: int):
-    """Per-phase (tap offset selector, fraction on the upper tap)."""
+    """Per output phase: (which tap pair, weight on the pair's second tap).
+    Pair 0 is (k-1, k), pair 1 is (k, k+1) around source index k."""
     out = []
     for p in range(r):
         d = (p + 0.5) / r - 0.5
-        if d < 0:            # taps (i-1, i), weight on i is 1+d
-            out.append((0, 1.0 + d))
-        else:                # taps (i, i+1), weight on i+1 is d
-            out.append((1, d))
+        out.append((0, 1.0 + d) if d < 0 else (1, d))
     return out
 
 
-def _kernel(y_ref, out_ref, *, r: int, rb: int, c: int, val_dtype):
-    """y_ref: (1, C, h+8) row-clamp-padded logits; out_ref:
-    (1, r, r, rb, w) int32 phase-major indices for rb input rows."""
-    blk = pl.program_id(1)
-    r0 = blk * rb                       # multiple of 8: aligned sublane load
-    w = y_ref.shape[3]
-    # one aligned load of rb+8 rows; the three +0/+1/+2 row shifts are
-    # static value slices (Mosaic forbids unaligned dynamic ref offsets)
-    rows = y_ref[0, :, pl.ds(r0, rb + 8), :].astype(jnp.float32)
-    shifted = [rows[:, s:s + rb] for s in range(3)]
-    lane = lax.broadcasted_iota(jnp.int32, (c, rb, w), 2)
+def _kernel(y_ref, o_ref, *, r: int, bo: int):
+    """y_ref: (N, h, w, C) logits; o_ref: (N, r*h, r*w) int32."""
+    _, h, w, c = y_ref.shape
+    b = pl.program_id(0)
+    i = pl.program_id(1)
+    ox = pl.program_id(2) * bo + jnp.arange(bo, dtype=jnp.int32)
+    j = jnp.minimum(ox // r, w - 1)
+    # this lane's horizontal phase as a tap pair and a weight (_fracs)
+    d = ((ox % r).astype(jnp.float32) + 0.5) / r - 0.5
+    first = d < 0
+    g = jnp.where(first, 1.0 + d, d)
+    j0 = jnp.clip(jnp.where(first, j - 1, j), 0, w - 1)
+    j1 = jnp.clip(jnp.where(first, j, j + 1), 0, w - 1)
+    rows = [jnp.clip(i + s, 0, h - 1) for s in (-1, 0, 1)]
     fr = _fracs(r)
+    best, idx = [None] * r, [None] * r
+    for cc in range(c):
+        cols = []
+        for rr in rows:
+            a = plt.load(y_ref.at[b, rr, j0, cc]).astype(jnp.float32)
+            a1 = plt.load(y_ref.at[b, rr, j1, cc]).astype(jnp.float32)
+            cols.append(a + g * (a1 - a))
+        for p, (pair, f) in enumerate(fr):
+            lo, hi = cols[pair], cols[pair + 1]
+            x = lo + f * (hi - lo)
+            if cc == 0:
+                best[p], idx[p] = x, jnp.zeros((bo,), jnp.int32)
+            else:
+                m = x > best[p]
+                best[p] = jnp.where(m, x, best[p])
+                idx[p] = jnp.where(m, cc, idx[p])
     for p in range(r):
-        off, f = fr[p]
-        lo, hi = shifted[off], shifted[off + 1]
-        v = lo + f * (hi - lo)                           # (C, rb, w) f32
-        # column neighbors with edge clamp: roll is circular, so pin the
-        # wrapped column back to the edge value
-        vm1 = jnp.where(lane == 0, v, pltpu.roll(v, 1, axis=2))
-        vp1 = jnp.where(lane == w - 1, v, pltpu.roll(v, w - 1, axis=2))
-        # shared per-pair differences: each horizontal phase is one FMA
-        dm, dp = v - vm1, vp1 - v
-        for q in range(r):
-            qoff, g = fr[q]
-            hq = (vm1 + g * dm) if qoff == 0 else (v + g * dp)
-            # first-max compare chain over classes (jnp.argmax tie rule)
-            # on the f32 interpolation — the torch reference argmaxes f32
-            # logits too [R]; the unfused XLA tail rounds to the model
-            # dtype first, so near-tie pixels can differ (rate-tested)
-            best = hq[0]
-            idx = jnp.zeros((rb, w), jnp.int32)
-            for cc in range(1, c):
-                m = hq[cc] > best
-                best = jnp.where(m, hq[cc], best)
-                idx = jnp.where(m, cc, idx)
-            out_ref[0, p, q, :, :] = idx
-
-
-def _pick_rb(h: int) -> int:
-    for rb in (32, 16, 8, 4, 2, 1):
-        if h % rb == 0:
-            return rb
-    return 1
+        plt.store(o_ref.at[b, r * i + p, ox], idx[p], mask=ox < r * w)
 
 
 @partial(jax.jit, static_argnames=("factor", "interpret"))
@@ -107,35 +103,18 @@ def resize_argmax(y: jnp.ndarray, factor: int,
                   interpret: bool = False) -> jnp.ndarray:
     """Fused ``argmax(upsample_bilinear_rx(y))`` -> (B, r*h, r*w) int32.
 
-    y: (B, h, w, C) float logits at low resolution. Gradient-free
-    (prediction only). Caller gates eligibility via
-    ``ops.classify.fused_resize_argmax``.
+    y: (B, h, w, C) float logits at low resolution. Prediction only (no
+    gradient). ``ops.classify.fused_resize_argmax`` decides eligibility.
     """
     n, h, w, c = y.shape
     r = int(factor)
-    # class-major, W-in-lanes layout + row clamp padding (tiny: the whole
-    # tensor is ~1.3 MB/img at zoo shapes). Bottom pads 7 rows so the
-    # kernel's aligned (rb+8)-row loads never run off the buffer.
-    t = jnp.transpose(y, (0, 3, 1, 2))                   # (B, C, h, w)
-    t = jnp.concatenate([t[:, :, :1], t] + [t[:, :, -1:]] * 7, axis=2)
-    rb = _pick_rb(h)
-    grid = (n, h // rb)
-    out = pl.pallas_call(
-        partial(_kernel, r=r, rb=rb, c=c, val_dtype=y.dtype),
-        grid=grid,
-        in_specs=[pl.BlockSpec((1, c, h + 8, w), lambda b, i: (b, 0, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, r, r, rb, w),
-                               lambda b, i: (b, 0, 0, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((n, r, r, h, w), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=n * h * w * c * r * r * 6,
-            bytes_accessed=n * c * h * w * y.dtype.itemsize
-            + n * r * r * h * w * 4,
-            transcendentals=0),
+    bo = min(BLOCK_OUT, pl.next_power_of_2(r * w))
+    return pl.pallas_call(
+        partial(_kernel, r=r, bo=bo),
+        grid=(n, h, pl.cdiv(r * w, bo)),
+        out_shape=jax.ShapeDtypeStruct((n, r * h, r * w), jnp.int32),
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )(t)
-    # depth-to-space: (B, r, r, h, w) -> (B, h*r, w*r)
-    out = jnp.transpose(out, (0, 3, 1, 4, 2))
-    return out.reshape(n, h * r, w * r)
+        name="resize_argmax",
+    )(y)

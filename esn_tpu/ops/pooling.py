@@ -3,10 +3,10 @@
 The reference relies on cuDNN ``MaxPool2d(return_indices=True)`` +
 ``MaxUnpool2d`` for the ENet/SegNet decoders [R: model/ENet.py,
 model/SegNet.py]. JAX has no stock unpool; the classic route is a scatter,
-which is hostile to the TPU's vector units. We exploit that every use in the
+which serialises on colliding writes. We exploit that every use in the
 zoo is a 2x2/stride-2 window, so the pool is a reshape+max over a static
 4-lane axis and the unpool is a **one-hot multiply + reshape** — pure
-VPU-friendly elementwise work, no scatter, trivially differentiable, and it
+elementwise work, no scatter, trivially differentiable, and it
 fuses with the surrounding convs under XLA.
 
 Indices are local window positions in [0, 4): ``idx = di*2 + dj`` (int32,
@@ -73,9 +73,9 @@ def max_pool2d_with_indices_2x2(x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarra
     Odd trailing rows/cols are dropped (torch floor semantics). Ties resolve
     to the first (lowest) window position, matching ``jnp.argmax``.
 
-    (A strided-view + fused-compare variant was measured 29% SLOWER on ENet —
-    four stride-2 middle-dim reads beat one transpose only on paper; the
-    window-flatten transpose below wins on the real chip.)
+    (A strided-view + fused-compare variant was slower on ENet before the
+    GPU port — four stride-2 middle-dim reads beat one transpose only on
+    paper; not measured on the H100.)
     """
     n, h, w, c = x.shape
     h2, w2 = h // 2, w // 2

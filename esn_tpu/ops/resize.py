@@ -20,7 +20,7 @@ def resize_bilinear(x: jnp.ndarray, size: Tuple[int, int]) -> jnp.ndarray:
     torch ``F.interpolate`` and cv2 ``INTER_LINEAR`` sample a plain
     2-tap bilinear kernel at every scale, while jax.image.resize
     defaults to widening the kernel when minifying (maxabs diff 1.28 on
-    unit-normal data at 4x — caught r4 via the ContextNet deep-branch
+    unit-normal data at 4x — caught via the ContextNet deep-branch
     input). For upsampling antialias is a no-op, so every fused predict
     tail keeps its semantics.
     """
@@ -44,7 +44,7 @@ def resize_nearest(x: jnp.ndarray, size: Tuple[int, int]) -> jnp.ndarray:
 def resize_nearest_cv2(x: jnp.ndarray, size: Tuple[int, int]) -> jnp.ndarray:
     """Nearest resize with cv2.INTER_NEAREST index semantics: destination
     pixel j reads source ``min(floor(j * src/dst), src-1)`` — verified
-    pixel-exact against cv2 at up- and down-scales (r5 probe; jax.image's
+    pixel-exact against cv2 at up- and down-scales (jax.image's
     'nearest' uses a different rounding and DISAGREES with cv2 at most
     scale ratios). The reference resizes LABELS with INTER_NEAREST
     [R: dataset/*.py __getitem__], so label parity requires this exact

@@ -2,12 +2,12 @@
 
 The zoo's stems convolve a full-res 3-channel input with stride 2
 (reference: ENet InitialBlock, ERFNet DownsamplerBlock, FastSCNN/CGNet/
-DABNet/ESPNet first conv [R: model/*.py]). On TPU a 3-channel NHWC tensor
-is padded to 128 lanes in every vector register and HBM tile — round-1
-profiling measured the stem at 42 ms of ENet's 254 ms b32 step, and the
-stem's weight-grad materializing a 3->128-lane padded full-res input was
-the single largest training allocation (3.91 GB, 42.7x waste; ERFNet b8
-full-res training OOM'd at 21.4 G needed vs 15.75 G HBM).
+DABNet/ESPNet first conv [R: model/*.py]). Where the channel axis is tiled
+128 lanes wide, as on the accelerator this was designed for before the GPU
+port, a 3-channel NHWC tensor is padded to 128 lanes in every vector
+register and memory tile, and the stem's weight-grad materialising that
+padded full-res input was the single largest training allocation (not
+measured on the H100).
 
 The fix: a stride-s conv consumes disjoint s x s input blocks up to its
 halo, so reshaping the input space-to-depth ``(B,H,W,C) -> (B,H/s,W/s,
@@ -38,9 +38,8 @@ def space_to_depth(x: jnp.ndarray, fh: int, fw: int) -> jnp.ndarray:
     phase layout is (gh, gw, c)-major, the W-phase interleave is a PURE
     RESHAPE of the (W*C)-flattened rows; only the H-phase split moves data
     (an H-strided slice + channel concat, both layout-friendly). The naive
-    6-D transpose lowering measured ~6 ms materialized at (16,1024,2048,3)
-    bf16 on v5e (a cross-lane byte shuffle); this one is ~1 ms and XLA can
-    fuse the slices into the consumer conv.
+    6-D transpose lowering is a cross-lane byte shuffle; here XLA can fuse
+    the slices into the consumer conv.
     """
     b, h, w, c = x.shape
     assert h % fh == 0 and w % fw == 0, (h, w, fh, fw)
@@ -205,13 +204,13 @@ from jax import lax
 def w_fold_stem_conv(x, kernel, *, stride, padding, bias=None,
                      lanes: int = 128, custom_grad: bool = True,
                      unfold: bool = True):
-    """Stride-s RGB-stem conv as a LANE-FULL W-folded conv (r5).
+    """Stride-s RGB-stem conv as a LANE-FULL W-folded conv.
 
-    The r5 audit measured the 3-channel stem at 26% of the fastscnn b8
-    train step (fwd 5.4 ms @ 8% HBM + native dW 5.8 ms @ 13% + 3.6 ms
-    input relayout) and the s2d(2,2) rewrite REGRESSED: its 12-channel
-    folded input takes a c-minor layout padded 12->128 lanes (10.7x
-    physical traffic, read from the compiled HLO). The fix that feeds
+    The 3-channel stem was a large share of the fastscnn train step before
+    the GPU port (not measured on the H100), and the s2d(2,2) rewrite
+    REGRESSED: its 12-channel folded input takes a c-minor layout padded
+    12->128 lanes (10.7x physical traffic, read from the compiled HLO).
+    The fix that feeds
     full lanes with ZERO shuffle cost is W-axis folding: ``fold_w`` is a
     pure reshape (W and C are adjacent in NHWC), so
       x (B,H,W,3) --reshape--> (B,H,W/64,192)   [192 >= 128 lanes]
@@ -245,12 +244,11 @@ def s2d_stem_conv(x, kernel, stride, padding):
     Forward: ``conv2d(x, kernel, stride, padding)`` computed as a stride-1
     conv over the s2d-folded input (exact rewrite; see s2d_kernel).
 
-    Backward (r5, from the audit_dx measurement): the naive composition
-    (s2d + folded conv under the generic custom conv VJP) REGRESSED the
-    fastscnn b8 full-res train step 148.8 -> 92.2 img/s even though the
-    convs themselves got faster — the backward spent ~20 ms in the
-    relayout's transpose chain and in materializing an input cotangent
-    nobody consumes. This VJP:
+    Backward: the naive composition (s2d + folded conv under the generic
+    custom conv VJP) REGRESSED the fastscnn full-res train step before the
+    GPU port even though the convs themselves got faster — the backward
+    spent its time in the relayout's transpose chain and in materializing
+    an input cotangent nobody consumes. This VJP:
 
       - returns a ZERO input cotangent (the stem input is the image;
         training differentiates wrt params only). ONLY valid at the true

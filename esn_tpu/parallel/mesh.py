@@ -1,13 +1,13 @@
 """Device mesh + sharding helpers — the framework's distributed backbone.
 
-Reference counterpart: ``nn.DataParallel`` single-process scatter/gather
-[R: train.py :: train_model] — replaced by a named ``jax.sharding.Mesh``
-with XLA collectives over ICI. The zoo's models are 0.3–30M params, so the
-production layout is pure data parallelism (batch sharded on the ``data``
-axis, params replicated, gradients psum'd by XLA's global-view autodiff);
-a ``model`` axis is reserved in the mesh-naming contract for spatial
-sharding of full-res activations (SURVEY.md §5 — vision analogue of
-sequence parallelism), wired in esn_tpu/parallel/spatial.py.
+Reference counterpart: ``nn.DataParallel`` single-process scatter/gather [R:
+train.py :: train_model] — replaced by a named ``jax.sharding.Mesh`` whose
+collectives XLA inserts (NCCL on GPUs). The zoo's models are 0.3–30M params, so
+the production layout is pure data parallelism (batch sharded on the ``data``
+axis, params replicated, gradients psum'd by XLA's global-view autodiff); a
+``model`` axis is reserved in the mesh-naming contract for spatial sharding of
+full-res activations (SURVEY.md §5 — vision analogue of sequence parallelism),
+wired in esn_tpu/parallel/spatial.py.
 """
 from __future__ import annotations
 
@@ -26,9 +26,9 @@ def make_mesh(devices: Optional[Sequence] = None,
               shape: Optional[Tuple[int, ...]] = None) -> Mesh:
     """Build a mesh. Default: all devices on one 'data' axis.
 
-    ``shape`` reshapes devices for multi-axis meshes, e.g. (4, 2) with
-    axes ('data', 'model'). On a multi-slice topology, put the DCN-crossing
-    axis first (outermost) so intra-slice collectives ride ICI.
+    ``shape`` reshapes devices for multi-axis meshes, e.g. (2, 2) with
+    axes ('data', 'model'). The cards of one host reach each other all to
+    all over NVLink, so the axis order follows the algorithm alone.
     """
     devices = list(devices if devices is not None else jax.devices())
     if shape is None:

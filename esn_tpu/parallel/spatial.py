@@ -1,10 +1,10 @@
 """Spatial sharding — the vision analogue of sequence/context parallelism
 (SURVEY.md §5). Full-res 2048x1024 activations dominate HBM when training
 Fast-SCNN/ContextNet (BASELINE config 5); sharding image *height* across a
-``model`` mesh axis splits every activation H-wise across chips.
+``model`` mesh axis splits every activation H-wise across devices.
 
-TPU-native mechanism: we only annotate shardings — XLA's SPMD partitioner
-inserts the halo exchanges (collective-permutes over ICI) that stencil ops
+Mechanism: we only annotate shardings — XLA's SPMD partitioner inserts
+the halo exchanges (collective-permutes between devices) that stencil ops
 (convs, pools) need at shard boundaries. This is the scaling-book recipe
 ("pick a mesh, annotate, let XLA insert collectives") applied to images; no
 hand-written ring code, and it composes with data parallelism on the other

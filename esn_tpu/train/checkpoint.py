@@ -3,12 +3,17 @@
 Reference: ``torch.save({'epoch','model'})`` per epoch + ``--resume``; the
 optimizer state is NOT saved, so reference resumes are inexact
 [R: train.py; SURVEY.md §5]. Here a checkpoint is the full TrainState
-(params + BN stats + optimizer state + step) plus metadata, serialized with
-flax msgpack — resume is bit-exact. ``convert_state.py``'s job (strip
-DataParallel prefixes) has no analogue: there is nothing to strip.
+(params + BN stats + optimizer state + step) plus metadata, so resume is
+bit-exact. ``convert_state.py``'s job (strip DataParallel prefixes) has no
+analogue: there is nothing to strip.
 
-Layout: ``{savedir}/model_{epoch}.ckpt`` (msgpack bytes), mirroring the
-reference's ``model_{epoch}.pth`` naming so sweep tooling (--best) ports over.
+Format: one uncompressed ``.npz`` holding every pytree leaf under its path
+("params/enc/conv/kernel", "opt_state/0/mu/...") and a JSON header with
+each leaf's dtype and the metadata. Dtypes numpy cannot store (bf16) are
+kept as same-width unsigned-integer views and restored bit for bit.
+
+Layout: ``{savedir}/model_{epoch}.ckpt``, mirroring the reference's
+``model_{epoch}.pth`` naming so sweep tooling (--best) ports over.
 """
 from __future__ import annotations
 
@@ -18,69 +23,103 @@ import re
 from typing import Any, Dict, Optional, Tuple
 
 import jax
+import jax.numpy as jnp
 import numpy as np
-from flax import serialization
 
 from .state import TrainState
 
 _CKPT_RE = re.compile(r"model_(\d+)\.ckpt$")
+_HEADER = "__header__"
+_NATIVE = {"bool", "int8", "int16", "int32", "int64", "uint8", "uint16",
+           "uint32", "uint64", "float16", "float32", "float64"}
 
 
-def _to_host(tree):
-    return jax.tree_util.tree_map(lambda x: np.asarray(x), tree)
+def _key(path) -> str:
+    parts = []
+    for k in path:
+        for attr in ("key", "name", "idx"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+        else:
+            raise TypeError(f"unsupported pytree path entry {k!r}")
+    return "/".join(parts)
+
+
+def _write(path: str, tree, meta: Dict[str, Any]) -> None:
+    arrays, dtypes = {}, {}
+    for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        a = np.asarray(jax.device_get(leaf))
+        key = _key(p)
+        dtypes[key] = a.dtype.name
+        if a.dtype.name not in _NATIVE:     # bf16 & co: raw bits
+            a = a.view(np.dtype(f"uint{8 * a.dtype.itemsize}"))
+        arrays[key] = a
+    header = json.dumps({"dtypes": dtypes, "meta": meta})
+    arrays[_HEADER] = np.frombuffer(header.encode(), np.uint8)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, path)  # atomic: a crash never leaves a torn checkpoint
+
+
+def _read(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    """(leaves by path, metadata) of a checkpoint file."""
+    with np.load(path, allow_pickle=False) as z:
+        header = json.loads(bytes(z[_HEADER]).decode())
+        leaves = {}
+        for key, dtype in header["dtypes"].items():
+            a = z[key]
+            if dtype not in _NATIVE:
+                a = a.view(jnp.dtype(dtype))
+            leaves[key] = a
+    return leaves, header["meta"]
+
+
+def _restore(target, leaves: Dict[str, np.ndarray], prefix: str = ""):
+    """Rebuild ``target``'s structure from ``leaves`` (shape-checked)."""
+    paths, treedef = jax.tree_util.tree_flatten_with_path(target)
+    out = []
+    for p, ref in paths:
+        key = prefix + _key(p)
+        if key not in leaves:
+            raise KeyError(f"checkpoint has no leaf {key!r}")
+        a = leaves[key]
+        if a.shape != np.shape(ref):
+            raise ValueError(
+                f"{key}: checkpoint {a.shape} != target {np.shape(ref)}")
+        out.append(a)
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def save_checkpoint(savedir: str, epoch: int, state: TrainState,
                     extra: Optional[Dict[str, Any]] = None) -> str:
     os.makedirs(savedir, exist_ok=True)
-    payload = {
-        "state": serialization.to_state_dict(_to_host(state)),
-        "meta": {"epoch": int(epoch), **(extra or {})},
-    }
-    data = serialization.msgpack_serialize(payload)
     path = os.path.join(savedir, f"model_{epoch}.ckpt")
-    tmp = path + ".tmp"
-    with open(tmp, "wb") as f:
-        f.write(data)
-    os.replace(tmp, path)  # atomic: a crash never leaves a torn checkpoint
+    _write(path, state, {"epoch": int(epoch), **(extra or {})})
     return path
 
 
 def load_checkpoint(path: str, target_state: TrainState
                     ) -> Tuple[TrainState, Dict[str, Any]]:
     """Restore into the structure of ``target_state`` (shape-checked)."""
-    with open(path, "rb") as f:
-        payload = serialization.msgpack_restore(f.read())
-    state = serialization.from_state_dict(target_state, payload["state"])
-    return state, dict(payload.get("meta", {}))
+    leaves, meta = _read(path)
+    return _restore(target_state, leaves), meta
 
 
 def load_variables(path: str, target_variables):
     """Restore only {params, stats} from a full checkpoint — for inference
     CLIs, which must load checkpoints regardless of how the optimizer chain
     was configured at train time."""
-    with open(path, "rb") as f:
-        payload = serialization.msgpack_restore(f.read())
-    sd = payload["state"]
-    restored = {
-        "params": serialization.from_state_dict(
-            target_variables["params"], sd["params"], name="params"),
-        "stats": serialization.from_state_dict(
-            target_variables["stats"], sd["stats"], name="stats"),
-    }
-    return restored, dict(payload.get("meta", {}))
+    leaves, meta = _read(path)
+    restored = {k: _restore(target_variables[k], leaves, k + "/")
+                for k in ("params", "stats")}
+    return restored, meta
 
 
 def latest_checkpoint(savedir: str) -> Optional[str]:
-    if not os.path.isdir(savedir):
-        return None
-    best, best_epoch = None, -1
-    for name in os.listdir(savedir):
-        m = _CKPT_RE.search(name)
-        if m and int(m.group(1)) > best_epoch:
-            best_epoch = int(m.group(1))
-            best = os.path.join(savedir, name)
-    return best
+    ckpts = list_checkpoints(savedir)
+    return ckpts[-1][1] if ckpts else None
 
 
 def list_checkpoints(savedir: str):
@@ -96,15 +135,11 @@ def list_checkpoints(savedir: str):
 
 def save_params_only(path: str, variables) -> None:
     """Inference-only export (params + stats)."""
-    data = serialization.msgpack_serialize(_to_host(variables))
-    with open(path, "wb") as f:
-        f.write(data)
+    _write(path, variables, {})
 
 
 def load_params_only(path: str, target_variables):
-    with open(path, "rb") as f:
-        payload = serialization.msgpack_restore(f.read())
-    return serialization.from_state_dict(target_variables, payload)
+    return _restore(target_variables, _read(path)[0])
 
 
 def load_encoder(path: str, variables, subtree: str = "enc"):
@@ -117,31 +152,12 @@ def load_encoder(path: str, variables, subtree: str = "enc"):
     ``subtree`` slice (extra donor leaves — e.g. the C-classifier head — are
     ignored).
     """
-    with open(path, "rb") as f:
-        payload = serialization.msgpack_restore(f.read())
-    sd = payload["state"]
-
-    def graft(dst, src, what):
-        out = {}
-        for k, v in dst.items():
-            if k not in src:
-                raise KeyError(f"encoder checkpoint missing {what}/{k}")
-            if isinstance(v, dict):
-                out[k] = graft(v, src[k], f"{what}/{k}")
-            else:
-                a = np.asarray(src[k])
-                if a.shape != v.shape:
-                    raise ValueError(
-                        f"{what}/{k}: donor {a.shape} != target {v.shape}")
-                out[k] = a.astype(v.dtype) if hasattr(v, "dtype") else a
-        return out
-
-    new = {
-        "params": dict(variables["params"]),
-        "stats": dict(variables["stats"]),
-    }
-    new["params"][subtree] = graft(
-        variables["params"][subtree], sd["params"], f"params[{subtree}]")
-    new["stats"][subtree] = graft(
-        variables["stats"][subtree], sd["stats"], f"stats[{subtree}]")
-    return new, dict(payload.get("meta", {}))
+    leaves, meta = _read(path)
+    new = {"params": dict(variables["params"]),
+           "stats": dict(variables["stats"])}
+    for k in ("params", "stats"):
+        grafted = _restore(variables[k][subtree], leaves, k + "/")
+        new[k][subtree] = jax.tree_util.tree_map(
+            lambda a, ref: a.astype(ref.dtype), grafted,
+            variables[k][subtree])
+    return new, meta

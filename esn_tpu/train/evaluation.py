@@ -3,9 +3,9 @@
 Reference: ``test.py :: test`` / ``train.py :: val`` [R] iterate the val
 loader one image at a time on one GPU and fan the confusion-matrix work out
 to a multiprocessing.Pool. Here every eval batch is padded host-side to ONE
-fixed shape (so XLA compiles the eval step exactly once per resolution —
-TPU compiles cost 20-60 s) and device_put sharded over the mesh's ``data``
-axis, so validation uses every chip; padded tail rows are masked out of the
+fixed shape (so XLA compiles the eval step exactly once per resolution)
+and device_put sharded over the mesh's ``data`` axis, so validation uses
+every device; padded tail rows are masked out of the
 confusion matrix via the batch's ``valid`` count (train/step.py).
 """
 from __future__ import annotations

@@ -4,7 +4,7 @@ Reference: ``utils/loss.py`` [R] — CrossEntropyLoss2d (class-weighted NLL),
 CrossEntropyLoss2dLabelSmooth (eps=0.1), ProbOhemCrossEntropy2d (thresh=0.7,
 min_kept=B*H*W/16), FocalLoss2d (gamma=2), LovaszSoftmax.
 
-TPU-native departures from the reference:
+Departures from the reference:
 - OHEM's dynamic "keep the hardest pixels" is reformulated with a static
   ``lax.top_k`` threshold so the whole loss stays inside one jitted graph
   (the reference sorts on device but with dynamic shapes, fine for eager
@@ -42,9 +42,9 @@ def _per_pixel_ce(logits: jnp.ndarray, labels: jnp.ndarray, num_classes: int,
     Formulated WITHOUT gathers or a materialized log_softmax:
     ``nll = logsumexp(logits) - logits[true]`` where the true-class pick is a
     one-hot masked reduction. A minor-axis ``take_along_axis`` plus full
-    ``log_softmax`` costs ~290 ms at (8,1024,2048,19) on v5e (measured —
-    tools/bench_fwd_bisect.py, 17x the entire model forward); the fused
-    iota-compare reductions below are single passes over the logits.
+    ``log_softmax`` cost many times the model forward before the GPU port
+    (not measured on the H100); the fused iota-compare reductions below
+    are single passes over the logits.
     """
     logits32 = logits.astype(jnp.float32)
     valid = _valid_mask(labels, num_classes, ignore_index)
@@ -97,20 +97,19 @@ def resize_cross_entropy(z, labels, *, num_classes: int,
     The reference trains every resize-tail model on logits upsampled to
     label resolution [R: train.py loss over F.interpolate'd logits]. At
     2048x1024 b8 that (B,H,W,19) tensor plus its backward cotangent is
-    the largest removable byte slab of an HBM-saturated train step
-    (measured 8.6 ms of 59.7 — see tools/bench_train_decomp.py and the
-    BOUNDS.md training section). Here the SAME scalar is computed by a
+    the largest removable byte slab of a memory-bound train step. Here
+    the SAME scalar is computed by a
     ``lax.scan`` over one-lowres-row blocks (s = H/h full-res rows): per
     block, slice the <=3 contributing lowres rows, apply the half-pixel
     bilinear taps (identical semantics to ops/resize.py — for a 2-tap
     kernel, edge clamping equals jax.image.resize's weight
     renormalization), run the gather-free CE, and accumulate
-    (weighted-sum, weight-sum). Block intermediates are ~s*W*C (VMEM
-    scale); the backward accumulates directly into the small lowres dz
+    (weighted-sum, weight-sum). Block intermediates are ~s*W*C; the
+    backward accumulates directly into the small lowres dz
     via dynamic_update_slice adds — no full-res scatter ever exists.
     Exact in f32 (parity-tested against cross_entropy∘resize_bilinear);
-    on TPU it additionally skips the bf16 rounding the unfused path
-    applies to the resized logits.
+    in bf16 it additionally skips the rounding the unfused path applies
+    to the resized logits.
 
     Requires an integer isotropic scale; anything else falls back to the
     materialized path.
@@ -125,18 +124,6 @@ def resize_cross_entropy(z, labels, *, num_classes: int,
                              ignore_index=ignore_index,
                              label_smoothing=label_smoothing)
     s = Hl // h
-    if (os.environ.get("ESN_TPU_FUSED_CE", "0") == "2" and h % 8 == 0
-            and jax.devices()[0].platform not in ("cpu",)):
-        # VMEM-resident Pallas kernel (ops/pallas/resize_ce.py): the
-        # r5 audit measured the materialized tail at ~9 ms of the 57 ms
-        # b8 fastscnn step; the isolated val+grad A/B measured
-        # 7.57 ms (kernel) vs 14.97 ms (materialized) at (8,128,256,19)
-        # x8. Same scalar (CPU-oracle parity <=4e-6 relL2).
-        from ..ops.pallas.resize_ce import resize_ce_sums
-        S, N = resize_ce_sums(z.astype(jnp.float32), labels, class_weights,
-                              r=s, ignore_index=ignore_index,
-                              label_smoothing=label_smoothing)
-        return S / jnp.maximum(N, 1e-8)
     kw = min(3, h)
     phases = []
     for p in range(s):
@@ -206,9 +193,9 @@ def kth_smallest(x: jnp.ndarray, k: int) -> jnp.ndarray:
     for level in range(8):
         shift = 28 - 4 * level
         low_mask = jnp.uint32((1 << shift) - 1)
-        # 16 scalar-broadcast counts fused into one sweep (measured 2.45 ms
-        # vs 3.03 for a lane-padded (N,16) compare and 39.8 for top_k at
-        # N=16.7M on v5e — tools/bench_ohem_kth.py)
+        # 16 scalar-broadcast counts fused into one sweep (faster than a
+        # lane-padded (N,16) compare and far faster than top_k before the
+        # GPU port; not measured on the H100)
         counts = jnp.stack([
             jnp.sum((bits <= (lo | (jnp.uint32(d) << shift) | low_mask))
                     .astype(jnp.int32))
@@ -294,16 +281,15 @@ def lovasz_softmax(logits, labels, *, num_classes: int,
     ``class_weights`` is accepted for API symmetry but unused (the Lovász
     extension is inherently class-balanced).
 
-    Cost note (measured, v5e): the extension needs the FULL descending
-    sort of the per-class errors over all B·H·W pixels, x num_classes —
-    at 2048x1024 that is 19 sorts of 8.4M elements and training runs at
-    ~1.3 img/s vs ~150 for CE/OHEM (benchmarks/zoo_train_lovasz_*.json).
-    A counting-sweep reformulation DOES exist (round-3's "no shortcut
-    without changing the gradient" was over-strong): quantizing errors to
-    4096 buckets and using the tie-block-average gradient —
+    Cost note: the extension needs the FULL descending sort of the
+    per-class errors over all B·H·W pixels, x num_classes — at 2048x1024
+    that is 19 sorts of 8.4M elements, two orders of magnitude slower
+    than CE/OHEM before the GPU port (not measured on the H100). A
+    counting-sweep reformulation exists: quantizing errors to 4096
+    buckets and using the tie-block-average gradient —
     ``lovasz_softmax_hist`` below — is exact up to a <=1.2e-4 key
-    quantization and runs 6.2x faster (8.0 img/s, same benchmark json).
-    Both remain far from CE/OHEM; prefer OHEM at production resolution.
+    quantization and was several times faster. Both remain far from
+    CE/OHEM; prefer OHEM at production resolution.
     """
     del class_weights
     probs = jax.nn.softmax(logits.astype(jnp.float32), axis=-1)
@@ -336,7 +322,8 @@ def _lovasz_bucket_tables(errors, fg, validf, n_buckets, chunk):
     block the sorted dot product telescopes: its value only needs the
     block-boundary Jaccard values, which only need per-bucket (count, fg)
     totals. Histograms are built as one-hot matmuls over pixel chunks
-    (MXU work; XLA scatter-add and `sort` never appear). Returns the
+    (matrix-unit work; XLA scatter-add and `sort` never appear). Returns
+    the
     (C, n_buckets) table of per-pixel coefficients ΔJaccard(b)/count(b)
     — the average Lovász gradient over each tie block.
     """
@@ -401,13 +388,13 @@ def lovasz_softmax_hist(logits, labels, *, num_classes: int,
                         n_buckets: int = 4096,
                         chunk: int = 1 << 15) -> jnp.ndarray:
     """Counting-sweep Lovász-Softmax: O(N) histograms instead of 19 full
-    sorts (VERDICT r3 item 9 experiment).
+    sorts.
 
     Errors are quantized to a 4096-level linear key (absolute key error
     <= 1.2e-4 on [0, 1]); tied pixels share the tie block's average
     Lovász gradient — the exact value/gradient of the sorted formulation
     under tie-aware telescoping, and within ~1e-4 of the f32-sort loss.
-    Two passes, both MXU one-hot matmuls over pixel chunks:
+    Two passes, both one-hot matmuls over pixel chunks:
       A (stop-grad) per-bucket (count, fg) histogram -> ΔJaccard/count
         coefficient table;
       B (differentiable) loss = Σ_p e_p * table[bucket(p)], checkpointed
@@ -466,20 +453,14 @@ def fused_resize_ce_spec(model, loss_name: str):
     resize-tail model (``LOGITS_TAIL == "resize"`` with a
     ``logits_lowres`` method) with ``ESN_TPU_FUSED_CE=1``.
 
-    Default OFF — measured 2.4x SLOWER at 2048x1024 b8 on v5e
-    (fastscnn 62.3 vs 148.8 img/s, contextnet 54.8 vs 109.7, r5 A/B
-    with the fwd_method actually wired — the r4 'perf-neutral' record
-    was a no-op comparison, caught by ADVICE r4): the scanned
-    block-CE's temporaries and the backward through the scan cost far
-    more than the full-res logits tensor the rewrite removes; XLA's
-    fusion of the materialized resize+CE tail is strongly competitive.
-    Collecting the measured 8.6 ms loss-tail slice
-    (tools/bench_train_decomp.py probe) would need a VMEM-resident
-    Pallas CE with a custom VJP; kept as an exact, tested experiment."""
+    Default OFF — it was about 2x slower at 2048x1024 b8 before the GPU
+    port (not measured on the H100): the scanned block-CE's temporaries
+    and the backward through the scan cost more than the full-res logits
+    tensor the rewrite removes. Kept as an exact, tested experiment."""
     if (loss_name in ("ce", "label_smoothing")
             and getattr(model, "LOGITS_TAIL", "conv") == "resize"
             and hasattr(model, "logits_lowres")
-            and os.environ.get("ESN_TPU_FUSED_CE", "0") in ("1", "2")):
+            and os.environ.get("ESN_TPU_FUSED_CE", "0") == "1"):
         smooth = 0.1 if loss_name == "label_smoothing" else 0.0
         return partial(resize_cross_entropy, label_smoothing=smooth), \
             "logits_lowres"

@@ -2,7 +2,7 @@
 
 Reference: ``utils/metric/metric.py`` [R] — a numpy ``ConfusionMatrix`` fed
 per-image ``[gt.flatten(), pred.flatten()]`` pairs, fanned out over a
-``multiprocessing.Pool``. TPU-native replacement: one fused
+``multiprocessing.Pool``. Replacement: one fused
 ``bincount``-style scatter-add per batch *on device* (the histogram is a
 single XLA reduce over ``gt*K + pred``), accumulated into a (K, K) fp64-free
 int32 matrix; cross-device reduction is a ``psum`` when evaluation runs under

@@ -7,9 +7,9 @@ donated so parameters update in place in HBM. Under a mesh, the batch arrives
 sharded on the 'data' axis and XLA's global-view autodiff inserts the psum
 for gradients — data parallelism with zero framework code in the step.
 
-Mixed precision: compute in ``compute_dtype`` (bf16 on TPU), params and
-optimizer state in fp32, loss/grad reduction in fp32 (SURVEY.md §2.6 AMP
-row: bf16 compute / fp32 accum is the TPU default policy).
+Mixed precision: compute in ``compute_dtype`` (bf16 on the GPU, see
+utils/runtime.py), params and optimizer state in fp32, loss/grad reduction
+in fp32 (SURVEY.md §2.6 AMP row: bf16 compute / fp32 accum).
 """
 from __future__ import annotations
 

@@ -2,7 +2,7 @@
 
 Reference counterpart: per-iteration ``time.time()`` prints and
 ``cudnn.benchmark=True`` [R: train.py :: train] — no real profiler. Here the
-TPU-native equivalents:
+JAX equivalents:
 
 - :func:`trace`: context manager around ``jax.profiler`` producing a
   Perfetto/XPlane trace directory (view with tensorboard or ui.perfetto.dev).

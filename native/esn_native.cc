@@ -1,4 +1,4 @@
-// esn_native — native data-loading runtime for the TPU framework.
+// esn_native — native data-loading runtime for the esn_tpu framework.
 //
 // Reference counterpart: the PyTorch zoo leans on torch DataLoader worker
 // processes running cv2 decode per item [R: dataset/cityscapes.py,

@@ -33,6 +33,9 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
     import numpy as np
+    from esn_tpu.utils.runtime import (default_compute_dtype,
+                                       setup_compile_cache)
+    setup_compile_cache()
     from esn_tpu.data import build_dataset_test, palettes
     from esn_tpu.data.datasets import get_spec
     from esn_tpu.models import build_model
@@ -55,9 +58,7 @@ def main(argv=None):
     if args.checkpoint:
         variables, _ = ckpt.load_variables(args.checkpoint, variables)
 
-    dtype = jnp.bfloat16 if (args.compute_dtype == "bfloat16" or (
-        args.compute_dtype is None and jax.default_backend() == "tpu")) \
-        else jnp.float32
+    dtype = jnp.dtype(args.compute_dtype or default_compute_dtype())
     predict = make_predict_step(model, compute_dtype=dtype)
 
     count = 0

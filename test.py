@@ -77,6 +77,9 @@ def main(argv=None):
     args = parse_args(argv)
     import jax
     import jax.numpy as jnp
+    from esn_tpu.utils.runtime import (default_compute_dtype,
+                                       setup_compile_cache)
+    setup_compile_cache()
     from esn_tpu.data import build_dataset_test
     from esn_tpu.data.datasets import get_spec
     from esn_tpu.models import build_model
@@ -113,9 +116,7 @@ def main(argv=None):
     elif args.checkpoint:
         candidates = [args.checkpoint]
 
-    dtype = jnp.bfloat16 if (args.compute_dtype == "bfloat16" or (
-        args.compute_dtype is None and jax.default_backend() == "tpu")) \
-        else jnp.float32
+    dtype = jnp.dtype(args.compute_dtype or default_compute_dtype())
 
     # one mesh + one jitted eval step shared across the whole sweep — a
     # --best sweep over N checkpoints compiles once, not N times

@@ -161,7 +161,7 @@ def _run_fpenet(x, train, monkeypatch, fold_on, model_cls=None):
 
 def test_fpenet_groupmajor_folded_matches_plain_eval(rng, monkeypatch):
     """FPEBlock._folded2 (group-major folded encoder: split expand,
-    dense-banded MXU depthwise, virtual-concat project) == plain path.
+    dense-banded depthwise, virtual-concat project) == plain path.
     W=48 -> s1.W=24 is NOT divisible by 8, exercising the fallback too."""
     x = jnp.asarray(rng.randn(2, 32, 64, 3), jnp.float32)
     ref, _ = _run_fpenet(x, False, monkeypatch, False)

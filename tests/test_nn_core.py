@@ -152,7 +152,7 @@ def test_jit_and_grad_compose():
 
 def test_grouped_conv_dense_blockdiag_parity(rng, monkeypatch):
     """The block-diag dense lowering for non-depthwise grouped convs
-    (nn.layers._block_diag_kernel; MXU lane fill) is exactly the grouped
+    (nn.layers._block_diag_kernel) is exactly the grouped
     conv: off-diagonal zeros are exact in the f32 accumulator. Both conv
     and grad parity, plus a 3x3 grouped case."""
     for k, g, cin, cout in [(1, 4, 16, 24), (3, 2, 8, 8)]:

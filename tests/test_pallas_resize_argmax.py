@@ -1,6 +1,7 @@
 """Parity tests for the fused bilinear-upsample+argmax prediction tail
-(ops/pallas/resize_argmax.py) — interpreter mode on CPU, vs the exact
-unfused XLA tail the models ship.
+(ops/pallas/resize_argmax.py, Pallas through Triton) — the Pallas
+interpreter on the CPU, vs the plain tail the models ship — and the
+wrapper's choice between the kernel and the plain tail.
 
 The kernel argmaxes the f32 interpolation (torch-reference semantics);
 the unfused tail rounds to the model dtype first, so bf16 near-tie pixels
@@ -64,8 +65,9 @@ def test_resize_argmax_first_max_tie_rule():
 
 
 def test_resize_argmax_odd_sizes(rng):
-    """Non-128-multiple widths and heights that don't divide the row
-    block (exercises _pick_rb fallback + Mosaic lane padding)."""
+    """Widths that are no multiple of the column tile and a class count
+    that is no power of two (exercises the clamped edge columns and the
+    masked class padding)."""
     y = jnp.asarray(rng.randn(3, 5, 13, 11).astype(np.float32))
     got = resize_argmax(y, 3, interpret=True)
     ref = _f32_ref(y, 3)
@@ -75,7 +77,7 @@ def test_resize_argmax_odd_sizes(rng):
 def test_model_predict_falls_back_unfused_on_cpu(rng):
     """On CPU the dispatcher returns None and predict must equal the
     plain argmax-of-logits tail exactly (covers the logits_lowres
-    refactor of the nine resize-tail models)."""
+    refactor of the eight resize-tail models)."""
     from esn_tpu import nn
     from esn_tpu.models import build_model
     for name in ("fastscnn", "contextnet", "edanet"):
@@ -86,3 +88,25 @@ def test_model_predict_falls_back_unfused_on_cpu(rng):
         logits = nn.apply(model, v, x, train=False)
         ref = jnp.argmax(logits, axis=-1).astype(jnp.int32)
         np.testing.assert_array_equal(np.asarray(pred), np.asarray(ref)), name
+
+
+@pytest.mark.parametrize("backend,shape,out_hw,fused", [
+    ("gpu", (2, 8, 16, 19), (64, 128), True),     # r=8, the zoo's shape
+    ("gpu", (1, 4, 6, 64), (8, 12), True),        # r=2, C at its limit
+    ("gpu", (1, 4, 6, 5), (12, 18), True),        # r=3
+    ("gpu", (1, 4, 6, 5), (10, 15), False),       # non-integer scale
+    ("gpu", (1, 4, 6, 5), (8, 18), False),        # anisotropic
+    ("gpu", (1, 4, 6, 5), (40, 60), False),       # r=10 > 8
+    ("gpu", (1, 4, 6, 65), (8, 12), False),       # C > 64
+    ("cpu", (2, 8, 16, 19), (64, 128), False),    # the CPU runs plain
+])
+def test_fused_resize_argmax_selection(rng, backend, shape, out_hw, fused):
+    """The wrapper picks the kernel by backend and shape alone; where it
+    picks it, the result is the kernel's."""
+    from esn_tpu.ops.classify import fused_resize_argmax
+    y = jnp.asarray(rng.randn(*shape).astype(np.float32))
+    got = fused_resize_argmax(y, out_hw, backend=backend, interpret=True)
+    assert (got is not None) == fused
+    if fused:
+        want = resize_argmax(y, out_hw[0] // shape[1], interpret=True)
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))

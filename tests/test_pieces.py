@@ -1,7 +1,6 @@
 """Virtual-concat (pieces) execution vs materialized concat.
 
-CGNet's raw-input injections create 35/131-channel concats that poison TPU
-lane layouts; the pieces path applies BN/PReLU with sliced per-channel
+CGNet's raw-input injections create misaligned 35/131-channel concats; the pieces path applies BN/PReLU with sliced per-channel
 params and splits conv kernels over the pieces. Both must match the
 materialized-concat reference math to float-epsilon, with identical
 variables layout (checkpoint compatibility)."""

@@ -1,6 +1,5 @@
 """Train/eval step tests: loss descends, DP sharding is value-equivalent to
 single-device, checkpoints resume exactly."""
-import os
 import tempfile
 
 import jax
@@ -186,56 +185,3 @@ def test_remat_matches_plain(rng):
     for a, b in zip(l1, l2):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                    rtol=1e-5, atol=1e-6)
-
-
-def test_trainer_compile_ceiling_fallback():
-    """A persistent compile-helper failure (remote_compile HTTP 500) on
-    the train step must degrade to doubled grad accumulation with the
-    same global batch, not crash (VERDICT r4 weak #2: the bench tool had
-    retry logic the product lacked)."""
-    from esn_tpu.train.trainer import TrainConfig, Trainer
-
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = TrainConfig(model="FastSCNN", dataset="camvid",
-                          data_root=os.path.join(tmp, "nodata"),
-                          savedir=os.path.join(tmp, "ckpt"),
-                          input_size=(32, 48), batch_size=4, max_epochs=1,
-                          val_epochs=99, num_workers=0, synthetic_len=8,
-                          synthetic_hw=(32, 48), seed=0)
-        tr = Trainer(cfg)
-        real_step = tr.train_step
-        calls = {"n": 0}
-
-        def failing_step(state, batch, rng):
-            calls["n"] += 1
-            if calls["n"] == 1:
-                raise RuntimeError(
-                    "remote_compile: HTTP 500: tpu_compile_helper "
-                    "subprocess exited")
-            return real_step(state, batch, rng)
-
-        tr.train_step = failing_step
-        loss, _ = tr.train_epoch(0)
-        assert np.isfinite(loss)
-        assert tr._grad_accum == 2  # rebuilt with microbatching
-        assert calls["n"] == 1     # the failing stub was replaced
-
-
-def test_trainer_fallback_reraises_unrelated_errors():
-    from esn_tpu.train.trainer import TrainConfig, Trainer
-
-    with tempfile.TemporaryDirectory() as tmp:
-        cfg = TrainConfig(model="FastSCNN", dataset="camvid",
-                          data_root=os.path.join(tmp, "nodata"),
-                          savedir=os.path.join(tmp, "ckpt"),
-                          input_size=(32, 48), batch_size=4, max_epochs=1,
-                          val_epochs=99, num_workers=0, synthetic_len=8,
-                          synthetic_hw=(32, 48), seed=0)
-        tr = Trainer(cfg)
-
-        def failing_step(state, batch, rng):
-            raise RuntimeError("FAILED_PRECONDITION: something transient")
-
-        tr.train_step = failing_step
-        with pytest.raises(RuntimeError, match="FAILED_PRECONDITION"):
-            tr.train_epoch(0)

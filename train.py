@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Training CLI — reference ``train.py`` surface [R] on the TPU-native core.
+"""Training CLI — reference ``train.py`` surface [R] on the JAX core.
 
 Example:
     python train.py --model ENet --dataset camvid --max_epochs 300 \
         --batch_size 8 --lr 4.5e-4 --lr_schedule poly
 
-Flags kept for compatibility even where the TPU backend makes them moot
-(--cuda/--gpus select devices in the reference; here the device mesh is
-discovered automatically and reported).
+Flags kept for compatibility even where JAX makes them moot (--cuda/--gpus
+select devices in the reference; here the device mesh is discovered
+automatically and reported).
 """
 import argparse
 import sys
@@ -51,7 +51,7 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--val_epochs", type=int, default=50)
     p.add_argument("--compute_dtype", default=None,
-                   help="float32|bfloat16 (default: bf16 on TPU)")
+                   help="float32|bfloat16 (default: bf16 on GPU, else f32)")
     p.add_argument("--grad_accum", type=int, default=1)
     p.add_argument("--data_root", default=None)
     p.add_argument("--synthetic_len", type=int, default=64)
@@ -73,9 +73,9 @@ def parse_args(argv=None):
 
 
 def config_from_args(args):
-    import jax
     from esn_tpu.data.datasets import get_spec
     from esn_tpu.train.trainer import TrainConfig
+    from esn_tpu.utils.runtime import default_compute_dtype
 
     spec = get_spec(args.dataset)
     if args.input_size:
@@ -91,8 +91,7 @@ def config_from_args(args):
         loss = "lovasz"
     elif args.use_focal:
         loss = "focal"
-    dtype = args.compute_dtype or (
-        "bfloat16" if jax.default_backend() == "tpu" else "float32")
+    dtype = args.compute_dtype or default_compute_dtype()
     kw = dict(
         model=args.model, dataset=args.dataset, input_size=(h, w),
         max_epochs=args.max_epochs, batch_size=args.batch_size, lr=args.lr,
@@ -118,6 +117,8 @@ def config_from_args(args):
 
 def main(argv=None):
     args = parse_args(argv)
+    from esn_tpu.utils.runtime import setup_compile_cache
+    setup_compile_cache()
     cfg = config_from_args(args)
     from esn_tpu.train.trainer import Trainer
     trainer = Trainer(cfg)
